@@ -4,13 +4,21 @@
 
 Phases:
   1. device name and power limit; build the CUDA kernels from
-     ``weaksuppointcloudseg_tpu_torch/ops/csrc`` (nvcc, first use);
-  2. every kernel of the ShapeNet test path against its plain PyTorch
-     version on the card, at the shapes the path gives it, with times;
+     ``weaksuppointcloudseg_tpu_torch/ops/csrc`` (nvcc, one process per
+     source, all started together);
+  2. every kernel of the ported paths against its plain PyTorch version on
+     the card, at the shapes the paths give it: kernel, plain and library
+     times, and the least time the card could take (``bound_ms``);
   3. the test path end to end through ``cli.test_shapenet.main`` at full
      ShapeNet width with seeded random weights on a synthetic raw-format
-     test set: launch counts of every kernel during that run, finite
-     metrics, and eval-forward / label-propagation times per batch.
+     test set: launch counts of B1/B7/B8 during that run, finite metrics,
+     and eval-forward / label-propagation times per batch;
+  4. f32 Full-style training end to end through ``ShapeNetTrainer`` at full
+     ShapeNet width (unique batch 32 -> 64 clouds x 2048 points, k=20,
+     exact kNN, gate on) on a seeded in-memory synthetic split: launch
+     counts of B12/B13 during ``train_epoch`` + ``evaluate``, finite
+     losses, the seg loss falling on a fixed batch, CUDA against the CPU
+     plain composition at a reduced batch, step time and peak memory.
 
 Prints a JSON line of per-kernel results, then the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
@@ -28,6 +36,7 @@ import time
 import numpy as np
 
 B, N, K = 32, 3000, 20  # the ShapeNet test batch (bench.py's eval shape)
+TB, TN = 64, 2048  # the Full-style training batch: 32 unique clouds x 2
 
 
 def card_line() -> str:
@@ -53,6 +62,33 @@ def timed_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# NVIDIA's published H100 SXM peaks at 700 W (dense): the least time a
+# kernel could take is the larger of its operations over the peak for their
+# type and the bytes it must move (inputs read once, outputs written once)
+# over the memory rate.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, kind: str, nbytes: float):
+    """(bound_ms, bound_by) of a kernel doing ``flops`` operations of type
+    ``kind`` and moving ``nbytes`` bytes."""
+    ops_ms = flops / PEAK_FLOPS[kind] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_row(name, source, replaces, max_abs_err, ms, plain_ms, bnd,
+               library_ms=None):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms)
 
 
 def bf16_randn(gen, shape, scale=1.0):
@@ -88,7 +124,7 @@ def check_knn_edge(gen, report):
     """
     import torch
 
-    from weaksuppointcloudseg_tpu_torch.ops import edgeconv
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn
 
     max_err = 0.0
     for cg, fast, minmax in ((3, False, False), (3, True, False),
@@ -115,7 +151,7 @@ def check_knn_edge(gen, report):
         mags = torch.stack([y32.abs().sum((0, 1, 2)), mom_want[1]])
         mom_err = ((mom - mom_want).abs() / mags).max().item()
         require(mom_err <= 1e-5, f"knn_edge cg={cg}: moment error {mom_err}")
-        d = edgeconv._distances(g)
+        d = knn.distances(g)
         d_sel = torch.gather(d, 2, idx.long())
         if fast:
             d_sel = torch.clamp_min(d_sel, 0.0)
@@ -141,13 +177,16 @@ def check_knn_edge(gen, report):
     u = bf16_randn(gen, (B, N, 64))
     ms = timed_ms(lambda: edgeconv.knn_edge(g, v, u, K, fast=True))
     plain_ms = timed_ms(lambda: edgeconv.knn_edge_ref(g, v, u, K, fast=True))
+    idx, y, mom = edgeconv.knn_edge(g, v, u, K, fast=True)
+    # bf16 Gram (2 B N^2 Cg), inputs g, v, u, outputs idx, y1, moments
+    bnd = bound(2.0 * B * N * N * 64, "bf16", nbytes(g, v, u, idx, y, mom))
     print(f"  knn_edge B={B} N={N} k={K} Cg=C=64 fast: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    report.append(dict(
-        name="knn_edge (B1)", route="cuda",
-        source="weaksuppointcloudseg_tpu_torch/ops/csrc/knn_edge.cu",
-        replaces="weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:610",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms))
+          f"plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+          f"{100 * bnd[0] / ms:.1f}% of bound")
+    report.append(kernel_row(
+        "knn_edge (B1)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn_edge.cu",
+        "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:610", max_err, ms,
+        plain_ms, bnd))
 
 
 def _bn_fold(gen, c, dev="cuda"):
@@ -188,14 +227,16 @@ def check_conv_zmax(gen, report):
         ms = timed_ms(lambda: conv_kmax.conv_zmax(h1, w2, b2, s2, t2, sc1, sh1))
         plain_ms = timed_ms(
             lambda: conv_kmax.conv_zmax_ref(h1, w2, b2, s2, t2, sc1, sh1))
+        bnd = bound(2.0 * B * N * K * 64 * c2, "bf16",
+                    nbytes(h1, w2, b2, s2, t2, sc1, sh1, got))
         print(f"  conv_zmax B={B} N={N} k={K} 64->{c2} fold: bitwise equal "
               f"{exact:.6f}, max abs err {err.max().item():.3e}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    report.append(dict(
-        name="conv_zmax (B7)", route="cuda",
-        source="weaksuppointcloudseg_tpu_torch/ops/csrc/conv_kmax.cu",
-        replaces="weaksuppointcloudseg_tpu/ops/conv_kmax_pallas.py:316",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms))
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+              f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    report.append(kernel_row(
+        "conv_zmax (B7)", "weaksuppointcloudseg_tpu_torch/ops/csrc/conv_kmax.cu",
+        "weaksuppointcloudseg_tpu/ops/conv_kmax_pallas.py:316", max_err, ms,
+        plain_ms, bnd))
 
 
 def check_conv_znmax(gen, report):
@@ -223,13 +264,115 @@ def check_conv_znmax(gen, report):
             max_err = max(max_err, err.max().item())
         ms = timed_ms(lambda: conv_kmax.conv_znmax(h, w, b, s2, t2))
         plain_ms = timed_ms(lambda: conv_kmax.conv_znmax_ref(h, w, b, s2, t2))
+        bnd = bound(2.0 * B * N * c1 * 1024, "bf16",
+                    nbytes(h, w, b, s2, t2, got))
         print(f"  conv_znmax B={B} N={N} {c1}->1024: max abs err "
-              f"{max_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    report.append(dict(
-        name="conv_znmax (B8)", route="cuda",
-        source="weaksuppointcloudseg_tpu_torch/ops/csrc/conv_kmax.cu",
-        replaces="weaksuppointcloudseg_tpu/ops/conv_kmax_pallas.py:411",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms))
+              f"{max_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}), "
+              f"{100 * bnd[0] / ms:.1f}% of bound")
+    report.append(kernel_row(
+        "conv_znmax (B8)", "weaksuppointcloudseg_tpu_torch/ops/csrc/conv_kmax.cu",
+        "weaksuppointcloudseg_tpu/ops/conv_kmax_pallas.py:411", max_err, ms,
+        plain_ms, bnd))
+
+
+def check_knn(gen, report):
+    """B12 against knn_ref at the training path's shapes: B=64 clouds of
+    N=2048 points; C=3 (transform branch, stage 0) and C=64 (stages 1-2)
+    at k=20, exact and fast, and C=3 at k=10 with values (the smoothness
+    loss).
+
+    Tolerances: indices by agreement rate (>= 99.9% exact: the kernel's
+    f32 Gram sums in another order than cuBLAS's, which can reorder exact
+    near-ties; >= 98% fast, ROADMAP C5); the selected distances against
+    the plain formula at the kernel's own indices, to 1e-5 of the distance
+    scale (fast: the dropped idx_bits of the mantissa)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import knn
+
+    max_err, times = 0.0, {}
+    for c, k, fast in ((3, K, False), (3, K, True), (64, K, False),
+                       (64, K, True), (3, 10, False)):
+        x = torch.randn((TB, TN, c), generator=gen, device="cuda")
+        idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
+        want = knn.knn_ref(x, k, fast=fast)
+        torch.cuda.synchronize()
+        agree = (idx == want).float().mean().item()
+        require(agree >= (0.98 if fast else 0.999),
+                f"knn C={c} k={k} fast={fast}: index agreement {agree}")
+        d = knn.distances(x)
+        d_sel = torch.gather(d, 2, idx.long())
+        if fast:
+            d_sel = d_sel.clamp_min(0.0)
+        scale = d.abs().amax().item()
+        err = (sqd - d_sel).abs().max().item()
+        tol = scale * (2.0 ** (knn.idx_bits(TN) - 23) if fast else 1e-5)
+        require(err <= tol, f"knn C={c} k={k} fast={fast}: sqd error {err}")
+        del d, d_sel
+        max_err = max(max_err, err)
+        with_values = k != K
+        ms = timed_ms(lambda: knn.knn(x, k, fast=fast, with_values=with_values))
+        plain_ms = timed_ms(lambda: knn.knn_ref(x, k, fast=fast,
+                                                with_values=with_values))
+        outs = (idx, sqd) if with_values else (idx,)
+        bnd = bound(2.0 * TB * TN * TN * c, "f32", nbytes(x, *outs))
+        # orientation only: two library calls, and topk has no tie order
+        pair_ms = timed_ms(lambda: torch.topk(torch.cdist(x, x), k, dim=-1,
+                                              largest=False))
+        times[(c, k, fast)] = (ms, plain_ms, bnd)
+        print(f"  knn B={TB} N={TN} C={c} k={k} fast={fast}: index agreement "
+              f"{agree:.6f}, sqd abs err {err:.2e}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, cdist+topk {pair_ms:.3f} ms, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    ms, plain_ms, bnd = times[(64, K, False)]
+    report.append(kernel_row(
+        "knn (B12)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn.cu",
+        "weaksuppointcloudseg_tpu/ops/knn_pallas.py:192", max_err, ms,
+        plain_ms, bnd))
+
+
+def check_scatter_add(gen, report):
+    """B13 against index_add_ at the training path's shapes (the backward
+    of the stage gathers: B=64, P=N=2048, k=20, C=64 and C=3).
+
+    Tolerance: f32 atomics add the k contributions to a row in an order
+    that changes from run to run, so each output element is held to 1e-5
+    of the sum of magnitudes that reach it (ROADMAP C4)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import scatter
+
+    max_err, times = 0.0, {}
+    for c in (64, 3):
+        idx = torch.randint(0, TN, (TB, TN, K), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        g = torch.randn((TB, TN, K, c), generator=gen, device="cuda")
+        got = scatter.scatter_add(idx, g, TN)
+        want = scatter.scatter_add_ref(idx, g, TN)
+        mags = scatter.scatter_add_ref(idx, g.abs(), TN)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        require(bool((err <= 1e-5 * mags + 1e-6).all()),
+                f"scatter_add C={c}: {err.max().item()}")
+        max_err = max(max_err, err.max().item())
+        ms = timed_ms(lambda: scatter.scatter_add(idx, g, TN))
+        plain_ms = timed_ms(lambda: scatter.scatter_add_ref(idx, g, TN))
+        rows = scatter._flat_rows(idx, TN)
+        flat = g.reshape(-1, c)
+        out = torch.zeros((TB * TN, c), device="cuda")
+        lib_ms = timed_ms(lambda: out.index_add_(0, rows, flat))
+        bnd = bound(float(g.numel()), "f32", nbytes(idx, g, got))
+        times[c] = (ms, plain_ms, bnd, lib_ms)
+        print(f"  scatter_add B={TB} P=N={TN} k={K} C={c}: max abs err "
+              f"{err.max().item():.2e}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    ms, plain_ms, bnd, lib_ms = times[64]
+    report.append(kernel_row(
+        "scatter_add (B13)", "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_add.cu",
+        "weaksuppointcloudseg_tpu/ops/scatter_pallas.py:358", max_err, ms,
+        plain_ms, bnd, library_ms=lib_ms))
 
 
 def phase_kernels(report):
@@ -241,6 +384,8 @@ def phase_kernels(report):
     check_knn_edge(gen, report)
     check_conv_zmax(gen, report)
     check_conv_znmax(gen, report)
+    check_knn(gen, report)
+    check_scatter_add(gen, report)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -258,16 +403,10 @@ CATEGORIES = (
     ("Table", "04379243", 3))
 
 
-def write_raw_testset(base: str, num_shapes: int = 40, seed: int = 0) -> None:
-    """A ShapeNet-format raw test set (the layout data/shapenet.py::
-    ShapeNetTestSet reads) with numpy and json only: per-category metadata
-    under hdf5_data/, .pts/.seg files under PartAnnotation/, and
-    testing_ply_file_list.txt. Shapes have 2000-3500 points, so shapes
-    past 3000 points take two views. Parts are slabs along z."""
+def write_meta(h5dir: str) -> None:
+    """The category/part maps under hdf5_data/ (ShapeNetMeta.load reads them)."""
     import os
 
-    rng = np.random.default_rng(seed)
-    h5dir = os.path.join(base, "hdf5_data")
     os.makedirs(h5dir, exist_ok=True)
     with open(os.path.join(h5dir, "all_object_categories.txt"), "w") as f:
         f.write("".join(f"{name}\t{cid}\n" for name, cid, _ in CATEGORIES))
@@ -280,6 +419,18 @@ def write_raw_testset(base: str, num_shapes: int = 40, seed: int = 0) -> None:
         json.dump(oid2cpid, f)
     with open(os.path.join(h5dir, "catid_partid_to_overallid.json"), "w") as f:
         json.dump(cpid2oid, f)
+
+
+def write_raw_testset(base: str, num_shapes: int = 40, seed: int = 0) -> None:
+    """A ShapeNet-format raw test set (the layout data/shapenet.py::
+    ShapeNetTestSet reads) with numpy and json only: per-category metadata
+    under hdf5_data/, .pts/.seg files under PartAnnotation/, and
+    testing_ply_file_list.txt. Shapes have 2000-3500 points, so shapes
+    past 3000 points take two views. Parts are slabs along z."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    write_meta(os.path.join(base, "hdf5_data"))
     rows = []
     for i in range(num_shapes):
         _, cid, parts = CATEGORIES[i % len(CATEGORIES)]
@@ -364,7 +515,7 @@ def phase_end_to_end(report) -> None:
     print(f"  cli run: {wall:.2f} s wall for {len(testset)} shapes "
           f"(file parsing and first calls included); launches {launches}")
     for row in report:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], row["launches"])
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched by the test path")
     for key in ("perdata_miou", "pershape_miou", "accuracy"):
@@ -432,9 +583,149 @@ def phase_end_to_end(report) -> None:
     device_breakdown(e2e, card)
 
 
-def device_breakdown(fn, card: str, runs: int = 3, top: int = 8) -> None:
+# ---------------------------------------------------------------- phase 4
+
+def synthetic_split(num: int, rng: np.random.Generator):
+    """(data [S, 2048, 3] f32, label [S] i32, seg [S, 2048] i32): clouds of
+    the 16 categories with their real part counts, parts as slabs along z,
+    normalized to the unit sphere as the h5 splits are."""
+    offsets = np.cumsum([0] + [p for _, _, p in CATEGORIES])
+    label = rng.integers(0, len(CATEGORIES), num).astype(np.int32)
+    data = rng.standard_normal((num, TN, 3)) * np.array([0.3, 0.2, 0.6])
+    data += rng.standard_normal((num, 1, 3)) * 0.05 * label[:, None, None] / 16
+    data /= np.linalg.norm(data, axis=-1).max(axis=1)[:, None, None]
+    parts = np.array([p for _, _, p in CATEGORIES])[label][:, None]
+    rank = np.argsort(np.argsort(data[..., 2], axis=1), axis=1)
+    seg = offsets[label][:, None] + (rank * parts) // TN
+    return data.astype(np.float32), label, seg.astype(np.int32)
+
+
+def in_memory_dataset(base: str, splits):
+    """A ShapeNetDataset whose train/val splits come from memory: the card's
+    machine has no h5py, so only the h5 reader is replaced, here."""
+    from weaksuppointcloudseg_tpu_torch.data import shapenet
+
+    class InMemory(shapenet.ShapeNetDataset):
+        def _load_split(self, list_name):
+            return splits[list_name.split("_")[0]]
+
+    write_meta(f"{base}/hdf5_data")
+    return InMemory(base)
+
+
+def phase_train(report) -> None:
+    """f32 Full-style training through ShapeNetTrainer at full width."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.data import sampling
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
+    from weaksuppointcloudseg_tpu_torch.ops import knn, scatter
+    from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+
+    print(f"phase 4: f32 Full-style training end to end (ShapeNetTrainer), "
+          f"{TB // 2} unique x 2 Siamese x {TN} points")
+    rng = np.random.default_rng(0)
+    splits = {"train": synthetic_split(3 * TB // 2, rng),
+              "val": synthetic_split(24, rng)}
+    base = configs.shapenet_config()
+    # rampup 0: the gate is on and the pairs are augmented from epoch 0
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, batch_size=TB // 2, rampup=0))
+    kernels = {"knn (B12)": knn.knn, "scatter_add (B13)": scatter.scatter_add}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = in_memory_dataset(tmp, splits)
+        pts_idx = sampling.generate_sample_index(3 * TB // 2, TN, 0.1)
+        trainer = ShapeNetTrainer(cfg, ds, pts_idx, seed=0, device="cuda")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        m = trainer.train_epoch(0)
+        val = trainer.evaluate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"  train_epoch (3 steps) + evaluate (24 val clouds): {wall:.2f} s "
+          f"wall (first calls included); launches {launches}")
+    print(f"  epoch metrics: " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    print(f"  eval: loss {val[0]:.4f} acc {val[1]:.4f} perdata mIoU "
+          f"{val[2]:.4f} pershape mIoU {float(np.mean(val[3])):.4f}")
+    for row in report:
+        row["launches"] = launches.get(row["name"], row["launches"])
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched by the training path")
+    for key in ("seg", "siamese", "inexact", "smooth", "total", "acc"):
+        require(np.isfinite(m[key]), f"train metric {key} = {m[key]}")
+    require(m["lr"] > 0 and 0 < m["bn_decay"] < 1, f"schedules {m}")
+    require(np.isfinite(val[0]) and 0 <= val[1] <= 1, f"eval {val}")
+
+    # a fixed batch: the seg loss must fall over the steps; step times
+    b = next(ds.batches("train", TB // 2))
+    batch = trainer._to_device(trainer._assemble(
+        b, siamese=True, augment_pairs=True, full_mask=False))
+    torch.cuda.reset_peak_memory_stats()
+    seg, step_s = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, 1.0, trainer.generator)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        seg.append(out["seg"])
+    seg = torch.stack(seg).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  seg loss on a fixed batch over 6 steps: "
+          + " ".join(f"{v:.4f}" for v in seg))
+    require(np.isfinite(seg).all() and seg[-1] < seg[0],
+            "the seg loss did not fall on a fixed batch")
+    card = card_line()
+    step = float(np.median(step_s[1:]))
+    print(f"  shapenet_full_f32_train_throughput: {step * 1e3:.3f} ms per step "
+          f"(median of 5), {TB // 2 * TN / step:.0f} unique points/s "
+          f"({TB * TN / step:.0f} fed points/s) [{card}]")
+    print(f"  peak device memory of a training step {peak:.2f} GiB [{card}]")
+    device_breakdown(lambda: trainer.train_step(batch, 1.0, trainer.generator),
+                     card, runs=1, top=12, what="train step", ops=14)
+
+    # CUDA against the CPU plain composition at a reduced batch (2 unique x
+    # 2 Siamese, N=2048, full widths, dropout off: the two devices' random
+    # streams differ), same weights and batch. Tolerances: losses 1e-3
+    # relative; every gradient leaf within 1e-2 of its largest entry plus
+    # 1e-4 of the largest over all leaves (cuBLAS and the kernels sum in
+    # other orders than the CPU; the conv biases in front of a BN have
+    # zero true gradient and rounding-noise computed ones)
+    small = dataclasses.replace(cfg.model, head_keep_prob=(None, None, None))
+    sub = {k: v[:4] for k, v in batch.items()}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(small, seed=1).to(dev)
+        total, comps, _ = loss_fn(model, {k: v.to(dev) for k, v in sub.items()},
+                                  cfg=cfg, style="Full", bn_decay=0.5, gate=1.0)
+        total.backward()
+        outs.append(({k: float(v.detach()) for k, v in comps.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_c, got_g), (want_c, want_g) = outs
+    loss_err = max(abs(got_c[k] - want_c[k]) / abs(want_c[k]) for k in want_c)
+    scale = max(v.abs().max().item() for v in want_g.values())
+    grad_err = max(((got_g[n] - w).abs().max().item())
+                   / (1e-2 * w.abs().max().item() + 1e-4 * scale)
+                   for n, w in want_g.items())
+    print(f"  CUDA vs CPU plain step, 2 x 2 x {TN} points: losses max rel err "
+          f"{loss_err:.2e}; gradients at {grad_err:.3f} of the tolerance")
+    require(loss_err <= 1e-3, "CUDA training losses disagree with the CPU")
+    require(grad_err <= 1.0, "CUDA gradients disagree with the CPU")
+
+
+def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
+                     what: str = "e2e", ops: int = 0) -> None:
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler)
-    and the device's busy share of the host wall time of those calls."""
+    and the device's busy share of the host wall time of those calls;
+    with ``ops``, also the ``ops`` PyTorch operators whose kernels took the
+    most device time (children included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -450,11 +741,35 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8) -> None:
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(ms for ms, _ in kernels)
-    print(f"  e2e device time by kernel, ms per batch (torch.profiler, {runs} "
+    print(f"  {what} device time by kernel, ms per call (torch.profiler, {runs} "
           f"runs) [{card}]: busy {busy_ms:.3f} of {wall_ms / runs:.3f} ms wall "
           f"({100 * busy_ms * runs / wall_ms:.1f}% busy)")
     for ms, name in kernels[:top]:
         print(f"    {ms:9.3f}  {name[:90]}")
+    groups = {}
+    for ms, name in kernels:
+        group = next((g for pattern, g in KERNEL_GROUPS if pattern in name),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print("    by group: " + ", ".join(
+        f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    if ops:
+        aten = sorted(((e.device_time_total / 1e3 / runs, e.count // runs, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith("aten::")), reverse=True)
+        print("    operators by device time (children included), ms per call "
+              "and calls: " + ", ".join(f"{name} {ms:.3f} x{n}"
+                                        for ms, n, name in aten[:ops]))
+
+
+# device kernels by the kind of work (first match wins)
+KERNEL_GROUPS = (
+    ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
+    ("knn_kernel", "B12"), ("sqnorm_kernel", "B1/B12 norms"),
+    ("scatter_add_kernel", "B13"), ("gemm", "cuBLAS GEMM"),
+    ("reduce_kernel", "reductions"), ("elementwise", "elementwise"),
+    ("index", "indexing"), ("sort", "sort"))
 
 
 def phase_build():
@@ -477,6 +792,7 @@ def main() -> int:
     report = []
     phase_kernels(report)
     phase_end_to_end(report)
+    phase_train(report)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

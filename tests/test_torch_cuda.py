@@ -16,7 +16,7 @@ import torch
 
 from weaksuppointcloudseg_tpu_torch import configs
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
-from weaksuppointcloudseg_tpu_torch.ops import conv_kmax, edgeconv
+from weaksuppointcloudseg_tpu_torch.ops import conv_kmax, edgeconv, knn, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -107,10 +107,97 @@ def test_wrappers_raise_on_bad_operands(gen):
         conv_kmax.conv_zmax(h, w, v, v, v)
 
 
+@pytest.mark.parametrize("c,k,fast", [(3, 20, False), (3, 20, True),
+                                      (64, 20, False), (64, 10, True),
+                                      (5, 7, False)])
+def test_knn_kernel(gen, c, k, fast):
+    """B12 against knn_ref on the same f32 points: index agreement >= 99.9%
+    exact (the Gram sums in another order than cuBLAS's, which can reorder
+    exact near-ties), >= 98% fast; the selected distances against the
+    plain formula at the kernel's own indices (exact: 1e-5 of the
+    distance scale; fast: the dropped idx_bits)."""
+    b, n = 3, 701
+    x = torch.randn((b, n, c), generator=gen, device="cuda")
+    before = knn.knn.launches
+    idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
+    assert knn.knn.launches == before + 1
+    want = knn.knn_ref(x, k, fast=fast)
+    agree = (idx == want).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+    d = knn.distances(x)
+    d_sel = torch.gather(d, 2, idx.long())
+    if fast:
+        d_sel = d_sel.clamp_min(0.0)
+    scale = d.abs().max().item()
+    tol = scale * (2.0 ** (knn.idx_bits(n) - 23) if fast else 1e-5)
+    assert (sqd - d_sel).abs().max().item() <= tol
+    assert torch.equal(knn.knn(x, k, fast=fast), idx)
+
+
+@pytest.mark.parametrize("c,n", [(64, 300), (3, 1000)])
+def test_scatter_add_kernel(gen, c, n):
+    """B13 against index_add_: f32 atomics sum in a run-dependent order,
+    so 1e-5 of the sum of magnitudes of each output element."""
+    b, p, k = 2, 333, 20
+    idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    g = torch.randn((b, p, k, c), generator=gen, device="cuda")
+    before = scatter.scatter_add.launches
+    got = scatter.scatter_add(idx, g, n)
+    assert scatter.scatter_add.launches == before + 1
+    want = scatter.scatter_add_ref(idx, g, n)
+    mags = scatter.scatter_add_ref(idx, g.abs(), n)
+    assert bool(((got - want).abs() <= 1e-5 * mags + 1e-6).all())
+
+
+def test_train_step_on_cuda_matches_cpu(gen):
+    """One f32 Full-style training step of a narrow ShapeNet model on the
+    card (B12, B13) against the same step over the plain versions on the
+    CPU, same weights and batch: loss components rtol 1e-3; gradients
+    within 1e-2 of each leaf's largest plus 1e-4 of the overall largest
+    (cuBLAS and the kernels sum in other orders; the conv biases in front
+    of a BN have zero true gradient and rounding-noise computed ones)."""
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+
+    cfg = configs.shapenet_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_classes=12, num_categories=4, k=8,
+        edge_channels=((16, 16), (16, 16), (16,)), global_channels=64,
+        category_embed_channels=8, head_channels=(32, 32, 16),
+        head_keep_prob=(None, None, None)),
+        weaksup=dataclasses.replace(cfg.weaksup, smooth_knn=4))
+    g = torch.Generator().manual_seed(0)
+    batch = {"data": torch.randn((4, 300, 3), generator=g) * 0.5,
+             "seg_onehot": torch.eye(12)[torch.randint(0, 12, (4, 300), generator=g)],
+             "mask": (torch.rand((4, 300), generator=g) < 0.3).float(),
+             "cat_onehot": torch.eye(4)[[0, 0, 2, 2]]}
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model = DGCNNSeg(cfg.model, seed=1).to(dev)
+        counts = (knn.knn.launches, scatter.scatter_add.launches)
+        total, comps, _ = loss_fn(model, {k: v.to(dev) for k, v in batch.items()},
+                                  cfg=cfg, style="Full", bn_decay=0.5, gate=1.0)
+        total.backward()
+        if dev == "cuda":
+            # 5 graphs (transform, 3 stages, smooth loss); 3 gathers' backward
+            assert (knn.knn.launches - counts[0],
+                    scatter.scatter_add.launches - counts[1]) == (5, 3)
+        outs.append(({k: float(v.detach()) for k, v in comps.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (want_c, want_g), (got_c, got_g) = outs
+    for k in want_c:
+        assert got_c[k] == pytest.approx(want_c[k], rel=1e-3), k
+    scale = max(v.abs().max().item() for v in want_g.values())
+    for name, w in want_g.items():
+        err = (got_g[name] - w).abs().max().item()
+        assert err <= 1e-2 * w.abs().max().item() + 1e-4 * scale, name
+
+
 def test_model_gate_on_cuda(gen):
-    """bf16 + fused kNN runs the kernels (counters grow) and agrees with
-    the same composition over the plain versions on the CPU; f32 on CUDA
-    raises and names B12."""
+    """bf16 + fused kNN runs the fused kernels (counters grow) and agrees
+    with the same composition over the plain versions on the CPU; f32 +
+    use_fused_knn runs B12 at eval and agrees with the CPU; the
+    configurations still unported raise and name their kernels."""
     cfg = dataclasses.replace(configs.shapenet_config().model,
                               compute_dtype="bfloat16", knn_fast=True)
     model = DGCNNSeg(cfg).eval()
@@ -126,6 +213,20 @@ def test_model_gate_on_cuda(gen):
             conv_kmax.conv_znmax.launches - counts[2]) == (4, 3, 2)
     agree = (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item()
     assert agree >= 0.99
-    f32 = DGCNNSeg(dataclasses.replace(cfg, compute_dtype="float32")).cuda()
-    with pytest.raises(NotImplementedError, match="B12"):
-        f32(x, cat)
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32", knn_fast=False)
+    f32 = DGCNNSeg(f32_cfg)
+    before = knn.knn.launches
+    with torch.inference_mode():
+        want = torch.softmax(f32(x.cpu(), cat.cpu()), -1)
+        got = torch.softmax(f32.cuda()(x, cat), -1)
+    assert knn.knn.launches - before == 4
+    agree = (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item()
+    assert agree >= 0.99 and (got.cpu() - want).abs().max().item() <= 1e-3
+    with pytest.raises(NotImplementedError, match="B2-B6"):
+        model.cuda()(x, cat, training=True, bn_decay=0.5)
+    unfused = DGCNNSeg(dataclasses.replace(cfg, use_fused_knn=False)).cuda()
+    with pytest.raises(NotImplementedError, match="B14"):
+        unfused(x, cat)
+    f32_unfused = DGCNNSeg(dataclasses.replace(f32_cfg, use_fused_knn=False)).cuda()
+    with pytest.raises(NotImplementedError, match="use_fused_knn"):
+        f32_unfused(x, cat)

@@ -27,7 +27,8 @@ def _shared_fields(port_obj, jax_obj):
             {n: getattr(jax_obj, n) for n in names})
 
 
-@pytest.mark.parametrize("part", ["model", "labelprop", "train"])
+@pytest.mark.parametrize("part", ["model", "labelprop", "train", "schedule",
+                                  "weaksup"])
 def test_shapenet_preset_matches_reference(part):
     got, want = _shared_fields(getattr(configs.shapenet_config(), part),
                                getattr(jax_configs.shapenet_config(), part))
@@ -39,8 +40,10 @@ def _option_strings(p):
 
 
 def test_cli_flags_match_reference():
+    """The reference's flags, plus the port's --device."""
     want = jax_common.base_parser("ShapeNet", train=False)
     want.add_argument("--num_points", type=int, default=3000)
+    want.add_argument("--device")
     assert _option_strings(cli.parser()) == _option_strings(want)
 
 
@@ -52,10 +55,36 @@ def test_cli_flags_match_reference():
 def test_cli_config_matches_reference(argv):
     args = cli.parser().parse_args(argv)
     jargs = jax_common.base_parser("ShapeNet", train=False).parse_args(argv)
-    jargs.Epoch = 1
     got_cfg = cli.build_config(args)
     want_cfg = jax_common.build_config(jargs, "ShapeNet")
-    for part in ("model", "labelprop", "train"):
+    for part in ("model", "labelprop", "train", "schedule", "weaksup"):
+        got, want = _shared_fields(getattr(got_cfg, part), getattr(want_cfg, part))
+        assert got == want, part
+
+
+def test_train_cli_flags_match_reference():
+    """The reference training CLI's flags, plus the port's --device."""
+    from weaksuppointcloudseg_tpu_torch.cli import train_shapenet
+
+    want = jax_common.base_parser("ShapeNet", train=True)
+    want.add_argument("--device")
+    assert _option_strings(train_shapenet.parser()) == _option_strings(want)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["-m", "0.01", "-sty", "Plain", "-bs", "32", "-ep", "7", "-rp", "3",
+     "--LearningRate", "0.01", "--CompatFrozenGate", "--FastKNN", "--seed", "2"],
+])
+def test_train_cli_config_matches_reference(argv):
+    from weaksuppointcloudseg_tpu_torch.cli import common, train_shapenet
+
+    args = train_shapenet.parser().parse_args(argv)
+    jargs = jax_common.base_parser("ShapeNet", train=True).parse_args(argv)
+    got_cfg = common.build_config(args)
+    want_cfg = jax_common.build_config(jargs, "ShapeNet")
+    assert got_cfg.dataset == want_cfg.dataset
+    for part in ("model", "labelprop", "train", "schedule", "weaksup"):
         got, want = _shared_fields(getattr(got_cfg, part), getattr(want_cfg, part))
         assert got == want, part
 

@@ -23,6 +23,14 @@ torch.set_num_threads(1)
 EPS = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def _eval_without_autograd():
+    """The layers' parameters are trainable; these eval comparisons run
+    without recording gradients."""
+    with torch.no_grad():
+        yield
+
+
 def conv_values(rng, in_c, out_c, bn=True):
     """Random conv params + population stats (negative gammas included)."""
     p = {"w": rng.uniform(-1, 1, (in_c, out_c)) * np.sqrt(3.0 / in_c),

@@ -65,7 +65,7 @@ def test_test_metrics_match_jax(dataset, jax_checkpoint):
     kw = dict(use_label_prop=True, num_points=100, batch_size=2)
     want = jax_trainer.test(shapenet.ShapeNetTestSet(dataset), **kw)
     testset = ShapeNetTestSet(dataset)
-    port = ShapeNetTrainer(cfg, testset.meta, seed=0)
+    port = ShapeNetTrainer(cfg, testset, seed=0, device="cpu")
     port.restore_checkpoint(path)
     got = port.test(testset, **kw)
     for key in ("perdata_miou", "pershape_miou", "accuracy"):
@@ -126,7 +126,8 @@ def test_cli_runs_full_width_on_cpu(dataset, tmp_path, capsys):
     ckpt = checkpoint.save_checkpoint(str(tmp_path / "full"),
                                       DGCNNSeg(model_cfg, seed=3))
     res = cli.main(["--DataPath", dataset, "--Checkpoint", ckpt,
-                    "--batchsize", "2", "--num_points", "100"])
+                    "--batchsize", "2", "--num_points", "100",
+                    "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.startswith("Test perdata mIoU ")
     assert "pershape mIoU" in out and "acc" in out
@@ -134,7 +135,7 @@ def test_cli_runs_full_width_on_cpu(dataset, tmp_path, capsys):
     trainer = ShapeNetTrainer(dataclasses.replace(
         cfg, model=model_cfg, train=dataclasses.replace(cfg.train,
                                                         batch_size=2)),
-        testset.meta)
+        testset, device="cpu")
     trainer.restore_checkpoint(ckpt)
     direct = trainer.test(testset, num_points=100)
     assert direct["perdata_miou"] == res["perdata_miou"]

@@ -5,21 +5,24 @@ counterpart at the same relative path there, and the tests in
 ``tests/test_torch_*.py`` hold the two against each other on the CPU.
 
 Ported so far: the ShapeNet test path (eval forward in bf16 with the fused
-EdgeConv blocks, then label propagation), with three hand-written Hopper
-kernels (``ops/csrc/*.cu``). Training, S3DIS and the other solvers are still
-to port (ROADMAP.md).
+EdgeConv blocks, or in f32, then label propagation) and ShapeNet Full-style
+training at the default f32 precision, with five hand-written Hopper
+kernels (``ops/csrc/*.cu``). bf16 training, S3DIS and the other solvers are
+still to port (ROADMAP.md).
 
 This package imports neither JAX nor the JAX package: the configs, the
-ShapeNet test-set reader and the IoU metrics it needs are its own copies
-(``configs``, ``data/shapenet.py``, ``metrics/iou.py``), held equal to the
-originals by tests/test_torch_data.py.
+ShapeNet readers, the augmentation and label sampling, and the IoU metrics
+it needs are its own copies (``configs``, ``data/``, ``metrics/iou.py``),
+held equal to the originals by tests/test_torch_data.py and
+tests/test_torch_train.py.
 """
 
 import torch
 
 # Label propagation feeds f32 Grams into exp(-1e3 * d^2): TF32's ~1e-3
 # relative error there turns affinities into noise (the reference's
-# neighbors.py:35-40 precision note). Full f32 everywhere in this package.
+# neighbors.py:35-40 precision note), and f32 training is held to the
+# reference's f32 gradients. Full f32 everywhere in this package.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -3,11 +3,12 @@ weaksuppointcloudseg_tpu/cli/test_shapenet.py, same flags and output).
 
     python -m weaksuppointcloudseg_tpu_torch.cli.test_shapenet \\
         --DataPath <ShapeNet root> --Checkpoint <v2 .npz> \\
-        --Precision bfloat16 --FastKNN --batchsize 32
+        --Precision bfloat16 --FastKNN --batchsize 32 [--device cpu]
 
 Restores a format-v2 checkpoint (written by either package), runs the
 3000-point view inference and, for the Full style, label propagation.
-Runs on CUDA device ``--GPU`` when one is present, else on the CPU.
+Runs on CUDA device ``--GPU``; where there is no card it raises unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,50 +18,17 @@ import dataclasses
 import os
 
 import numpy as np
-import torch
 
 from weaksuppointcloudseg_tpu_torch import configs
+from weaksuppointcloudseg_tpu_torch.cli import common
 from weaksuppointcloudseg_tpu_torch.data.shapenet import ShapeNetTestSet
 from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
 
 
 def parser() -> argparse.ArgumentParser:
     """The reference test CLI's flags (cli/common.py::base_parser with
-    train=False, plus --num_points). Flags the port cannot honour yet are
-    accepted and refused in :func:`main`."""
-    p = argparse.ArgumentParser(description="Take parameters")
-    p.add_argument("--GPU", "-gpu", type=int, default=0, help="CUDA device index")
-    p.add_argument("--m", "-m", type=float, default=0.1,
-                   help="ratio of points labelled (accepted; training only)")
-    p.add_argument("--Network", "-net", type=str, default="DGCNN",
-                   help="[options: DGCNN]")
-    p.add_argument("--DataPath", type=str, default=None,
-                   help="dataset root [default: ./Dataset/ShapeNet]")
-    p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel size (not ported: must be <= 1)")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--Precision", type=str, default=None,
-                   choices=["float32", "bfloat16"],
-                   help="compute dtype; bfloat16 + --FastKNN runs the fused "
-                        "CUDA kernels")
-    p.add_argument("--FastKNN", action="store_true",
-                   help="packed-min top-k selection")
-    p.add_argument("--StaticGraph", action="store_true",
-                   help="static-graph EdgeConv (not ported yet)")
-    p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="not supported by the port")
-    p.add_argument("--debug_nans", action="store_true",
-                   help="not supported by the port")
-    p.add_argument("--batchsize", type=int, default=1)
-    p.add_argument("--Style", "-style", type=str, default="Full",
-                   help="[options: Plain, Full]")
-    p.add_argument("--Datetime", "-dt", type=str, default=None,
-                   help="datetime stamp of the trained model to load")
-    p.add_argument("--Checkpoint", type=str, default=None,
-                   help="explicit checkpoint path (overrides --Datetime)")
-    p.add_argument("--LPSolver", type=str, default=None,
-                   choices=["solve", "cg", "cg_matfree", "sharded"],
-                   help="label-propagation solver (only cg is ported)")
+    train=False, plus --num_points) and ``--device``."""
+    p = common.base_parser(train=False)
     p.add_argument("--num_points", type=int, default=3000,
                    help="fixed view size at test time "
                         "(ShapeNet_DGCNN_trainer.py:530-535)")
@@ -68,21 +36,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def build_config(args) -> configs.ExperimentConfig:
-    """The ShapeNet preset with the flags applied (cli/common.py::
-    build_config)."""
-    cfg = configs.shapenet_config()
-    model = cfg.model
-    if args.Precision:
-        model = dataclasses.replace(model, compute_dtype=args.Precision)
-    model = dataclasses.replace(model, knn_fast=model.knn_fast or args.FastKNN,
-                                static_graph=args.StaticGraph)
-    labelprop = cfg.labelprop
-    if args.LPSolver:
-        labelprop = dataclasses.replace(labelprop, solver=args.LPSolver)
-    train = dataclasses.replace(cfg.train, batch_size=args.batchsize,
-                                style=args.Style)
-    return dataclasses.replace(cfg, model=model, labelprop=labelprop,
-                               train=train)
+    """The ShapeNet preset with the flags applied."""
+    return common.build_config(args)
 
 
 def find_result_dir(args) -> str:
@@ -99,20 +54,15 @@ def find_result_dir(args) -> str:
 def main(argv=None) -> dict:
     p = parser()
     args = p.parse_args(argv)
-    for flag in ("profile", "debug_nans"):
-        if getattr(args, flag):
-            p.error(f"--{flag} traces JAX and is not supported by the port")
-    if args.num_devices > 1:
-        p.error("data parallelism is not ported yet (ROADMAP queue A)")
+    common.refuse_unported(p, args)
     data_path = args.DataPath or "./Dataset/ShapeNet"
     testset = ShapeNetTestSet(data_path)
     cfg = build_config(args)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, num_classes=testset.meta.num_part_cats,
         num_categories=testset.meta.num_categories))
-    device = (torch.device(f"cuda:{args.GPU}") if torch.cuda.is_available()
-              else torch.device("cpu"))
-    trainer = ShapeNetTrainer(cfg, testset.meta, seed=args.seed, device=device)
+    trainer = ShapeNetTrainer(cfg, testset, seed=args.seed,
+                              device=common.device(args))
 
     if args.Checkpoint:
         ckpt = args.Checkpoint

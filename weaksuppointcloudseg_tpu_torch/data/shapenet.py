@@ -1,10 +1,12 @@
-"""ShapeNet part-segmentation test data (numpy and json only).
+"""ShapeNet part-segmentation data.
 
-Counterpart of the test-time half of weaksuppointcloudseg_tpu/data/
-shapenet.py: the category/part maps under ``hdf5_data/``, the raw
-``.pts``/``.seg`` test files listed in ``testing_ply_file_list.txt``
-(DataIO_ShapeNet.py:122-142, 235-344), and the fixed-size views that cover
-every point of a shape. The h5 training splits come with training.
+Counterpart of weaksuppointcloudseg_tpu/data/shapenet.py: the category/part
+maps under ``hdf5_data/``, the h5 train/val splits (``data`` [S,2048,3],
+``label`` [S,1], ``pid`` [S,2048]; DataIO_ShapeNet.py:317-325) served as
+fixed-shape batches, the raw ``.pts``/``.seg`` test files listed in
+``testing_ply_file_list.txt`` (DataIO_ShapeNet.py:122-142, 235-344), and
+the fixed-size views that cover every point of a shape. ``h5py`` is
+imported only when a split is read.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,6 +53,19 @@ class ShapeNetMeta:
         return self.object2setofoid[self.objcats[category_index]]
 
 
+def load_h5_seg(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read one h5 shard -> (data [S,N,3] f32, label [S] i32, seg [S,N] i32)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        data = f["data"][:]
+        label = f["label"][:]
+        seg = f["pid"][:]
+    return (np.asarray(data, np.float32),
+            np.asarray(label).reshape(-1).astype(np.int32),
+            np.asarray(seg, np.int32))
+
+
 def pc_normalize(pc: np.ndarray) -> np.ndarray:
     """Center + scale to the unit sphere (DataIO_ShapeNet.py:337-344)."""
     pc = pc - pc.mean(axis=0)
@@ -80,6 +95,66 @@ def cover_partition(n_points: int, target: int, rng: np.random.Generator) -> lis
             chunk = np.concatenate([chunk, perm[pad]])
         views.append(chunk)
     return views
+
+
+@dataclasses.dataclass
+class Batch:
+    """One fixed-shape training/eval batch."""
+
+    data: np.ndarray  # [B, N, 3]
+    label: np.ndarray  # [B] category index
+    seg: np.ndarray  # [B, N] part labels
+    sample_ids: np.ndarray  # [B] global sample index (for SampIndex masks)
+    valid: int  # number of real (non-padding) samples
+
+
+class ShapeNetDataset:
+    """Train/val splits concatenated from the hdf5 shard lists."""
+
+    def __init__(self, base_dir: str):
+        self.base_dir = base_dir
+        self.h5_base_path = os.path.join(base_dir, "hdf5_data")
+        self.meta = ShapeNetMeta.load(self.h5_base_path)
+        self._splits = {}
+
+    def _load_split(self, list_name: str):
+        with open(os.path.join(self.h5_base_path, list_name)) as f:
+            files = [line.strip() for line in f if line.strip()]
+        parts = [load_h5_seg(os.path.join(self.h5_base_path,
+                                          os.path.basename(name)))
+                 for name in files]
+        return tuple(np.concatenate(a) for a in zip(*parts))
+
+    def split(self, name: str):
+        """name: 'train' | 'val'. Returns (data, label, seg) arrays."""
+        if name not in self._splits:
+            self._splits[name] = self._load_split(f"{name}_hdf5_file_list.txt")
+        return self._splits[name]
+
+    def num_samples(self, name: str) -> int:
+        return self.split(name)[0].shape[0]
+
+    def batches(self, name: str, batch_size: int, *, shuffle: bool = False,
+                drop_last: bool = False,
+                rng: Optional[np.random.Generator] = None) -> Iterator[Batch]:
+        """Fixed-shape batches; the short tail is zero-index padded (or
+        dropped, as the reference trains: ShapeNet_DGCNN_trainer.py:163-164).
+        A shuffle draws one permutation from ``rng``, as the reference's
+        dataset does, so a seed gives both packages the same order."""
+        data, label, seg = self.split(name)
+        n = data.shape[0]
+        order = np.arange(n)
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(order)
+        for start in range(0, n, batch_size):
+            idx = order[start:start + batch_size]
+            valid = len(idx)
+            if valid < batch_size:
+                if drop_last:
+                    return
+                idx = np.concatenate([idx, np.zeros(batch_size - valid, np.int64)])
+            yield Batch(data=data[idx], label=label[idx], seg=seg[idx],
+                        sample_ids=idx, valid=valid)
 
 
 class ShapeNetTestSet:

@@ -1,4 +1,4 @@
-"""DGCNN (EdgeConv) segmentation network, eval only.
+"""DGCNN (EdgeConv) segmentation network.
 
 Counterpart of weaksuppointcloudseg_tpu/models/dgcnn.py. The parameters
 carry init_dgcnn_seg's names (``transform_net.tconv1.w``,
@@ -6,19 +6,23 @@ carry init_dgcnn_seg's names (``transform_net.tconv1.w``,
 ``seg_out``), so the module's state_dict keys are the JAX pytree's key
 paths joined with dots (utils/checkpoint.py).
 
-Which path runs is decided by where the tensors live, in place of the
-reference's ``jax.default_backend()`` gate (dgcnn.py:144-145):
+Which path runs is decided by the compute dtype, ``use_fused_knn`` and
+where the tensors live, in place of the reference's
+``jax.default_backend()`` gate (dgcnn.py:144-145):
 
-  CUDA, bf16 compute, use_fused_knn  -> forward_fused, over kernels B1/B7/B8
-  CPU, any compute dtype             -> forward_plain (dgcnn.py:216-331)
-  CUDA, anything else                -> NotImplementedError: the plain kNN
-      would run unfused on the card; its kernel (B12, knn_pallas) is the
-      next to port.
+  CUDA, bf16, use_fused_knn, eval   -> forward_fused, kernels B1/B7/B8
+  CUDA, f32, use_fused_knn          -> forward_plain, kNN by kernel B12 and
+                                       the gather's backward by kernel B13
+  CPU, anything                     -> forward_plain over plain versions
+  CUDA, anything else               -> NotImplementedError naming the
+                                       kernels still to port (bf16
+                                       training: B2-B6; bf16 without
+                                       use_fused_knn: B14)
 
-Not ported here: training (dropout, batch moments), static-graph mode and
-EdgeConv stages of three or more convs (no preset has one). The
-reference's ``allow_known_bad_bf16`` guard is absent on purpose: the bf16
-miscompile it guards against is a TPU backend fault.
+Not ported here: static-graph mode and EdgeConv stages of three or more
+convs on the fused path (no preset has one). The reference's
+``allow_known_bad_bf16`` guard is absent on purpose: the bf16 miscompile it
+guards against is a TPU backend fault.
 """
 
 from __future__ import annotations
@@ -84,36 +88,67 @@ class DGCNNSeg(nn.Module):
         return [getattr(self, f"adj_conv{conv_i + j}") for j in range(len(widths))]
 
     def forward(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor] = None,
-                n_valid: Optional[int] = None) -> torch.Tensor:
-        """Eval logits [B, N, num_classes] f32 of points x [B, N, C].
+                n_valid: Optional[int] = None, *, training: bool = False,
+                bn_decay=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits [B, N, num_classes] f32 of points x [B, N, C].
 
-        ``n_valid`` (fused path only): rows >= n_valid of x are padding;
-        they are never neighbors and never win the max over points.
+        ``training``: batch-moment BN (the population stats in the BN
+        buffers are updated in place with ``bn_decay``) and dropout with
+        masks from ``generator``. ``n_valid`` (fused eval path only): rows
+        >= n_valid of x are padding; they are never neighbors and never
+        win the max over points.
         """
-        cfg = self.cfg
         if x.device.type == "cuda":
-            if cfg.use_fused_knn and self.compute_dtype == torch.bfloat16:
+            if self._cuda_route(training) == "fused":
                 return self.forward_fused(x, cat_onehot, n_valid)
-            raise NotImplementedError(
-                "this configuration would run the plain kNN unfused on the "
-                "card; it needs kernel B12 (ops/knn_pallas.py::knn_pallas, "
-                "ROADMAP), the next kernel to port. Use bfloat16 compute "
-                "with use_fused_knn on CUDA.")
-        if x.device.type != "cpu":
+        elif x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         if n_valid is not None:
             raise ValueError("n_valid is a fused-path option")
-        return self.forward_plain(x, cat_onehot)
+        return self.forward_plain(x, cat_onehot, training=training,
+                                  bn_decay=bn_decay, generator=generator)
 
-    def forward_plain(self, x: torch.Tensor,
-                      cat_onehot: Optional[torch.Tensor]) -> torch.Tensor:
-        """Plain PyTorch composition (reference dgcnn.py:216-331)."""
-        cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
+    def _cuda_route(self, training: bool) -> str:
+        """"fused" or "plain" on CUDA; raises for the configurations whose
+        kernels are not ported yet."""
+        cfg = self.cfg
+        if self.compute_dtype == torch.bfloat16:
+            if not cfg.use_fused_knn:
+                raise NotImplementedError(
+                    "bfloat16 without use_fused_knn gathers neighbors with "
+                    "kernel B14 (ops/gather_pallas.py::gather_rows_pallas), "
+                    "which is not ported yet (ROADMAP)")
+            if training:
+                raise NotImplementedError(
+                    "bfloat16 training runs the fused blocks' training kernels "
+                    "B2-B6 (conv_kmax_pallas.py, scatter_pallas.py, "
+                    "edgeconv_pallas.py), which are not ported yet (ROADMAP); "
+                    "train in float32")
+            return "fused"
+        if not cfg.use_fused_knn:
+            raise NotImplementedError(
+                "float32 without use_fused_knn would run the plain distance "
+                "+ sort kNN on the card; that route is not ported. Use "
+                "use_fused_knn (kernel B12)")
+        return "plain"
+
+    def forward_plain(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
+                      *, training: bool = False, bn_decay=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Plain composition (reference dgcnn.py:216-232, 300-317,
+        327-365): kNN graphs by B12 with ``use_fused_knn`` (its plain
+        version on CPU tensors), else the plain distance + sort; neighbor
+        gathers whose backward is B13."""
+        cfg, dt = self.cfg, self.compute_dtype
+        kw = dict(eps=cfg.bn_eps, training=training, decay=bn_decay)
+        nkw = dict(use_fused=cfg.use_fused_knn, fast=cfg.knn_fast)
         if cfg.use_transform_net:
             g = self._knn_input(x)
             # graph on the raw coordinates, features in the compute dtype
             transform = self.transform_net.forward_plain(g, g.to(dt), cfg.k,
-                                                         eps=eps)
+                                                         **nkw, **kw)
             x = self._apply_transform(x, transform)
         feat = x.to(dt)
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
@@ -122,16 +157,17 @@ class DGCNNSeg(nn.Module):
             src = graph_feat if s_i == 0 else outs[-1]
             f_in = feat if s_i == 0 else outs[-1]
             convs = self._convs(widths, conv_i)
-            nbr = neighbors.gather_neighbors(f_in, neighbors.knn_graph(src, cfg.k))
-            h = layers.apply_edge_conv(convs[0], f_in, nbr, eps=eps)
+            nbr = neighbors.neighbor_features_auto(src, f_in, cfg.k, **nkw)
+            h = layers.apply_edge_conv(convs[0], f_in, nbr, **kw)
             for p in convs[1:]:
-                h = layers.apply_conv(p, h, eps=eps)
+                h = layers.apply_conv(p, h, **kw)
             outs.append(torch.amax(h, dim=2))
             conv_i += len(widths)
         concat = torch.cat(outs, dim=-1)
         global_feat = torch.amax(
-            layers.apply_conv(self.agg_conv, concat, eps=eps), dim=1)
-        return self._head(global_feat, concat, cat_onehot)
+            layers.apply_conv(self.agg_conv, concat, **kw), dim=1)
+        return self._head(global_feat, concat, cat_onehot, generator=generator,
+                          **kw)
 
     def forward_fused(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
                       n_valid: Optional[int] = None) -> torch.Tensor:
@@ -166,24 +202,31 @@ class DGCNNSeg(nn.Module):
         concat = torch.cat(outs, dim=-1)
         global_feat = layers.apply_conv_bn_relu_nmax(
             self.agg_conv, concat, eps=eps, n_valid=n_valid)
-        return self._head(global_feat, concat, cat_onehot)
+        return self._head(global_feat, concat, cat_onehot, eps=eps)
 
     @staticmethod
     def _apply_transform(x, transform):
         """x @ transform in f32, then back to x's dtype (dgcnn.py:233-236)."""
         return torch.matmul(x.float(), transform.to(x.dtype).float()).to(x.dtype)
 
-    def _head(self, global_feat, concat, cat_onehot):
-        cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
+    def _head(self, global_feat, concat, cat_onehot, *, eps: float,
+              training: bool = False, decay=None,
+              generator: Optional[torch.Generator] = None):
+        cfg, dt = self.cfg, self.compute_dtype
+        kw = dict(eps=eps, training=training, decay=decay)
         if cfg.num_categories > 0:
             if cat_onehot is None:
                 raise ValueError("model was built with a category branch")
-            cat = layers.apply_conv(self.cat_embed, cat_onehot.to(dt), eps=eps)
+            cat = layers.apply_conv(self.cat_embed, cat_onehot.to(dt), **kw)
             global_feat = torch.cat([global_feat, cat], dim=-1)
         # first head conv: the global feature is constant over N, so its
         # product runs once per sample and broadcasts (layers.apply_conv_bcast)
         h = layers.apply_conv_bcast(self.seg_conv1, global_feat.to(dt), concat,
-                                    eps=eps)
+                                    **kw)
+        h = layers.dropout(h, cfg.head_keep_prob[0], training=training,
+                           generator=generator)
         for h_i in range(2, len(cfg.head_channels) + 1):
-            h = layers.apply_conv(getattr(self, f"seg_conv{h_i}"), h, eps=eps)
-        return layers.apply_conv(self.seg_out, h, eps=eps, relu=False).float()
+            h = layers.apply_conv(getattr(self, f"seg_conv{h_i}"), h, **kw)
+            h = layers.dropout(h, cfg.head_keep_prob[h_i - 1],
+                               training=training, generator=generator)
+        return layers.apply_conv(self.seg_out, h, relu=False, **kw).float()

@@ -1,8 +1,9 @@
-"""Input (XYZ) spatial transform net, eval only.
+"""Input (XYZ) spatial transform net.
 
 Counterpart of weaksuppointcloudseg_tpu/models/transform_net.py: edge
 features -> conv 64 -> conv 128 -> max over k -> conv 1024 -> max over N ->
 fc 512 -> fc 256 -> linear to K*K (zero weights, identity bias at init).
+The plain path trains and evaluates; the fused path is eval only.
 """
 
 from __future__ import annotations
@@ -33,23 +34,27 @@ class TransformNet(nn.Module):
             self.transform_out.w.zero_()
             self.transform_out.b.copy_(torch.eye(K).reshape(-1))
 
-    def _head(self, net: torch.Tensor, eps: float) -> torch.Tensor:
-        net = layers.apply_conv(self.tfc1, net, eps=eps)
-        net = layers.apply_conv(self.tfc2, net, eps=eps)
+    def _head(self, net: torch.Tensor, eps: float, **kw) -> torch.Tensor:
+        net = layers.apply_conv(self.tfc1, net, eps=eps, **kw)
+        net = layers.apply_conv(self.tfc2, net, eps=eps, **kw)
         out = self.transform_out
         transform = net.float() @ out.w + out.b
         return transform.reshape(-1, self.K, self.K)
 
     def forward_plain(self, g: torch.Tensor, f: torch.Tensor, k: int, *,
-                      eps: float) -> torch.Tensor:
-        """Plain path: kNN graph on ``g``, edge features of ``f``
-        (transform_net.py:80-102). Returns the [B, K, K] transform."""
-        ef = neighbors.edge_feature(f, neighbors.knn_graph(g, k))
-        net = layers.apply_conv(self.tconv1, ef, eps=eps)
-        net = layers.apply_conv(self.tconv2, net, eps=eps)
+                      eps: float, use_fused: bool = True, fast: bool = False,
+                      training: bool = False, decay=None) -> torch.Tensor:
+        """Plain path (transform_net.py:80-106): kNN graph on ``g`` (kernel
+        B12 with ``use_fused``), edge features of ``f``, convs with batch
+        moments when ``training``. Returns the [B, K, K] transform. ``f``
+        is data, so no gradient reaches the neighbor gather."""
+        kw = dict(eps=eps, training=training, decay=decay)
+        ef = neighbors.edge_feature_auto(g, f, k, use_fused=use_fused, fast=fast)
+        net = layers.apply_conv(self.tconv1, ef, **kw)
+        net = layers.apply_conv(self.tconv2, net, **kw)
         net = torch.amax(net, dim=2)
-        net = layers.apply_conv(self.tconv3, net, eps=eps)
-        return self._head(torch.amax(net, dim=1), eps)
+        net = layers.apply_conv(self.tconv3, net, **kw)
+        return self._head(torch.amax(net, dim=1), **kw)
 
     def forward_fused(self, g: torch.Tensor, k: int, *, eps: float,
                       fast: bool, n_valid: Optional[int] = None) -> torch.Tensor:
@@ -61,4 +66,4 @@ class TransformNet(nn.Module):
             n_valid=n_valid)
         net = layers.apply_conv_bn_relu_nmax(self.tconv3, net, eps=eps,
                                              n_valid=n_valid)
-        return self._head(net, eps)
+        return self._head(net, eps=eps)

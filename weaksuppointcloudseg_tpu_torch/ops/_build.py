@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lives under
+The sources are compiled at first use by ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lives under
 ``weaksuppointcloudseg_tpu_torch/_build/<hash>/`` (git-ignored), keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Only the repository's sources are compiled.
@@ -26,7 +27,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point (pointers and the stream as void*)
@@ -35,6 +36,8 @@ SIGNATURES = {
                         P, P, P],
     "conv_zmax_launch": [P, P, P, P, P, P, P, I, I, I, I, P, P],
     "conv_znmax_launch": [P, P, P, P, P, I, I, I, I, I, I, P, P, P],
+    "knn_launch": [P, I, I, I, I, I, I, P, P, P, P],
+    "scatter_add_launch": [P, P, I, I, I, I, I, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -63,6 +66,21 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libwspc_kernels.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first use."""
     global _lib, build_seconds
@@ -71,17 +89,18 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources()]]
+        tag = f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        objs = [out.with_name(f".{src.stem}.{tag}.o") for src in _sources()]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = out.with_name(f".{out.name}.{tag}")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
         build_seconds = time.perf_counter() - t0
         os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

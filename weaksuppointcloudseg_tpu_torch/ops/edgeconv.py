@@ -18,23 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import _build
-
-_PAD_PACKED = 0x7F000000  # packed value of a column >= n_valid (fast mode)
-
-
-def idx_bits(n: int) -> int:
-    """Low bits of a packed fast-mode entry that hold the column index."""
-    return max(1, (n - 1).bit_length())
-
-
-def _distances(g: torch.Tensor) -> torch.Tensor:
-    """(-2 g_i.g_j + |g_i|^2) + |g_j|^2 in f32 from bf16 g, in the
-    reference's order of additions (edgeconv_pallas.py:110-119)."""
-    gf = g.float()
-    sq = torch.sum(gf * gf, dim=-1)
-    d = -2.0 * torch.bmm(gf, gf.transpose(1, 2))
-    d = d + sq[:, :, None]
-    return d + sq[:, None, :]
+from weaksuppointcloudseg_tpu_torch.ops.knn import distances, idx_bits, select_ref
 
 
 def knn_edge_ref(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
@@ -44,24 +28,7 @@ def knn_edge_ref(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
     """Plain PyTorch version of :func:`knn_edge` (same contract)."""
     b, n, _ = g.shape
     nv = n if n_valid is None else min(n_valid, n)
-    d = _distances(g)
-    col = torch.arange(n, device=g.device, dtype=torch.int32)
-    if fast:
-        mask = (1 << idx_bits(n)) - 1
-        bits = torch.clamp_min(d, 0.0).view(torch.int32)
-        packed = (bits & ~mask) | col
-        if nv < n:
-            packed = torch.where(col < nv, packed, _PAD_PACKED | col)
-        # packed values are unique (the column sits in the low bits)
-        sel = torch.topk(packed, k, dim=-1, largest=False, sorted=True).values
-        idx = sel & mask
-        sqd = (sel & ~mask).view(torch.float32)
-    else:
-        if nv < n:
-            d = torch.where(col < nv, d, torch.inf)
-        # stable sort: equal distances keep the lowest index first
-        sqd, idx = torch.sort(d, dim=-1, stable=True)
-        sqd, idx = sqd[..., :k], idx[..., :k].int()
+    idx, sqd = select_ref(distances(g), k, fast=fast, n_valid=nv)
     bi = torch.arange(b, device=g.device)[:, None, None]
     y = (v.float()[bi, idx.long()] + u.float()[:, :, None, :]).to(v.dtype)
     if nv < n:

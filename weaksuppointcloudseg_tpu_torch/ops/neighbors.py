@@ -1,13 +1,18 @@
-"""Pairwise distance, kNN and neighbor gather in plain PyTorch.
+"""Pairwise distance, kNN and neighbor gather.
 
-Counterpart of weaksuppointcloudseg_tpu/ops/neighbors.py. These serve the
-f32 CPU path of the model and the plain versions of the kernels in
-``ops/edgeconv.py``; on the card the fused path never calls them.
+Counterpart of weaksuppointcloudseg_tpu/ops/neighbors.py. ``knn_graph`` is
+the plain distance + sort (the reference's XLA path), which serves the CPU
+and the kernels' plain versions; the model never runs it on the card.
+``knn_graph_fused`` is kernel B12 on CUDA tensors (its plain version on CPU
+tensors), and the backward of ``gather_neighbors`` is kernel B13.
 """
 
 from __future__ import annotations
 
 import torch
+
+from weaksuppointcloudseg_tpu_torch.ops import knn as knn_ops
+from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 
 def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
@@ -33,19 +38,56 @@ def knn(sqdist: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(sqdist, dim=-1, stable=True).indices[..., :k]
 
 
+class _GatherNeighbors(torch.autograd.Function):
+    """Exact indexing forward; the cotangent scatter-adds back onto x's
+    rows through kernel B13 (its plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        idx = idx.int()
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype = x.shape[1], x.dtype
+        b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        return x[b, idx.long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        dx = scatter_add(idx.contiguous(), ct.float().contiguous(), ctx.n)
+        return dx.to(ctx.dtype), None
+
+
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, N, C], idx [B, N, k] -> neighbor features [B, N, k, C]."""
-    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
-    return x[b, idx.long()]
-
-
-def edge_feature(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """EdgeConv edge features concat([x_i, x_j - x_i]) -> [B, N, k, 2C]."""
-    nbr = gather_neighbors(x, idx)
-    central = x[:, :, None, :].expand_as(nbr)
-    return torch.cat([central, nbr - central], dim=-1)
+    return _GatherNeighbors.apply(x, idx)
 
 
 def knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
     """Pairwise distance + kNN in one call. [B, N, C] -> [B, N, k]."""
     return knn(pairwise_sqdist(x), k)
+
+
+def knn_graph_fused(x: torch.Tensor, k: int, fast: bool = False) -> torch.Tensor:
+    """int32 [B, N, k] kNN graph through kernel B12 (ops/knn.py): on CUDA
+    the kernel (f32 x), on CPU its plain version. No gradient flows."""
+    return knn_ops.knn(x.detach().contiguous(), k, fast=fast)
+
+
+def neighbor_features_auto(g: torch.Tensor, f: torch.Tensor, k: int,
+                           use_fused: bool = True,
+                           fast: bool = False) -> torch.Tensor:
+    """Neighbor features f[idx(knn(g))] -> [B, N, k, C]. With ``use_fused``
+    the graph comes from B12, else from the plain distance + sort (the
+    reference's f32 routes, neighbors.py:145-160). Gradients flow to ``f``
+    through the B13 scatter; ``g`` gets none."""
+    idx = knn_graph_fused(g, k, fast=fast) if use_fused else knn_graph(g, k)
+    return gather_neighbors(f, idx)
+
+
+def edge_feature_auto(g: torch.Tensor, f: torch.Tensor, k: int,
+                      use_fused: bool = True, fast: bool = False) -> torch.Tensor:
+    """EdgeConv edge features concat([f_i, f_j - f_i]) with the graph built
+    on ``g`` (neighbors.py:163-178)."""
+    nbr = neighbor_features_auto(g, f, k, use_fused, fast)
+    central = f[:, :, None, :].expand_as(nbr)
+    return torch.cat([central, nbr - central], dim=-1)

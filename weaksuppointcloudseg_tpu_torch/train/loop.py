@@ -1,43 +1,192 @@
-"""ShapeNet test driver. Counterpart of weaksuppointcloudseg_tpu/train/
-loop.py::ShapeNetTrainer, with ``restore_checkpoint`` and ``test`` only
-(training, evaluation epochs and S3DIS are still to port).
+"""ShapeNet trainer. Counterpart of weaksuppointcloudseg_tpu/train/loop.py::
+ShapeNetTrainer (ShapeNet_DGCNN_trainer.py: TrainOneEpoch_Full,
+EvalOneEpoch_Full, Test, SaveCheckPoint, RestoreCheckPoint): host-side
+batch assembly in numpy (SampIndex masks, Siamese pairs, one-hot labels),
+the train and eval steps on the device, per-shape IoU on the host.
+
+The model runs on ``device``, the card by default; a caller that wants the
+CPU says so (``device="cpu"``). Not ported yet: the background prefetch
+thread, resuming Adam state, data parallelism and the S3DIS trainer
+(ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from weaksuppointcloudseg_tpu_torch.configs import ExperimentConfig
+from weaksuppointcloudseg_tpu_torch.data import augment, sampling
 from weaksuppointcloudseg_tpu_torch.data import shapenet as shapenet_data
 from weaksuppointcloudseg_tpu_torch.metrics.iou import category_biased_argmax, eval_iou
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.propagate.label_prop import propagate_batch
-from weaksuppointcloudseg_tpu_torch.train.steps import make_eval_logits_fn
-from weaksuppointcloudseg_tpu_torch.utils.checkpoint import load_jax_checkpoint
-from weaksuppointcloudseg_tpu_torch.utils.tools import onehot_encode
+from weaksuppointcloudseg_tpu_torch.train.state import Adam
+from weaksuppointcloudseg_tpu_torch.train.steps import (
+    make_eval_logits_fn,
+    make_eval_step,
+    make_train_step,
+)
+from weaksuppointcloudseg_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    load_jax_checkpoint,
+)
+from weaksuppointcloudseg_tpu_torch.utils.tools import onehot_encode, resolve_device
 
 
 class ShapeNetTrainer:
-    """ShapeNet part segmentation at test time (ShapeNet_DGCNN_trainer.py
-    Test / RestoreCheckPoint). The model lives on ``device``; ``meta`` is
-    the test set's category/part maps."""
+    """ShapeNet part segmentation: training, validation and test.
 
-    def __init__(self, cfg: ExperimentConfig, meta: shapenet_data.ShapeNetMeta,
-                 *, seed: int = 0, device="cpu"):
+    ``dataset`` provides ``meta`` (the category/part maps) and, for
+    training and validation, ``batches`` (data/shapenet.py::
+    ShapeNetDataset); the test path needs only ``meta``, so a
+    ShapeNetTestSet will do. ``pts_idx_list`` [num_train_samples,
+    n_labelled] are the labelled points (None: every point labelled).
+    """
+
+    def __init__(self, cfg: ExperimentConfig, dataset, pts_idx_list=None, *,
+                 seed: int = 0, device="cuda", ckpt_dir: Optional[str] = None):
         self.cfg = cfg
         self.style = cfg.train.style
-        self.device = torch.device(device)
-        self.model = DGCNNSeg(cfg.model, seed=seed).to(self.device).eval()
-        # same stream as the reference trainer's: the test views
-        # (cover_partition) are drawn from it
+        self.rampup = cfg.train.rampup
+        self.device = resolve_device(device)
+        self.model = DGCNNSeg(cfg.model, seed=seed).to(self.device)
+        self.opt = Adam(self.model.parameters())
+        self.train_step = make_train_step(cfg, self.model, self.opt)
+        self.eval_step = make_eval_step(self.model)
+        # same stream as the reference trainer's: shuffles, Siamese
+        # augmentation and the test views are drawn from it
         self.np_rng = np.random.default_rng(seed)
-        self.meta = meta
+        # dropout masks (the reference's per-step key stream)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed + 1)
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.ds = dataset
+        self.meta = dataset.meta
+        self.pts_idx = pts_idx_list
         self.num_classes = cfg.model.num_classes
         self.num_categories = cfg.model.num_categories
         self.epoch = 0
+        # category -> its part ids, [num_categories, num_classes], for the
+        # reference's category-biased train argmax
+        self._cat_part_mask = np.zeros(
+            (self.num_categories, self.num_classes), np.float32)
+        for c in range(min(self.num_categories, len(self.meta.objcats))):
+            self._cat_part_mask[c, self.meta.iou_oids(c)] = 1.0
+
+    # -- batches ------------------------------------------------------------
+
+    def _assemble(self, b: shapenet_data.Batch, *, siamese: bool,
+                  augment_pairs: bool, full_mask: bool) -> Dict[str, np.ndarray]:
+        """Host-side batch (loop.py:185-216), on the reference's draws."""
+        n = b.data.shape[1]
+        if full_mask or self.pts_idx is None:
+            mask = np.ones((b.data.shape[0], n), np.float32)
+        else:
+            mask = sampling.indices_to_mask(self.pts_idx, b.sample_ids, n)
+        data = b.data
+        valid = np.zeros(b.data.shape[0], np.float32)
+        valid[:b.valid] = 1.0
+        # padded tail rows must not enter the masked-CE denominator
+        mask = mask * valid[:, None]
+        if siamese:
+            aug = augment.shapenet_augment if augment_pairs else None
+            data = augment.make_siamese_batch(data, self.np_rng, aug)
+            mask = augment.interleave_duplicate(mask)
+            seg = augment.interleave_duplicate(b.seg)
+            label = augment.interleave_duplicate(b.label)
+            valid = augment.interleave_duplicate(valid)
+        else:
+            seg, label = b.seg, b.label
+        cat_onehot = onehot_encode(label, self.num_categories)
+        return {
+            "data": data.astype(np.float32),
+            "seg": seg.astype(np.int64),
+            "seg_onehot": onehot_encode(seg, self.num_classes),
+            "mask": mask,
+            "cat_onehot": cat_onehot,
+            "part_bias": cat_onehot @ self._cat_part_mask,
+            "valid": valid,
+        }
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    # -- epochs -------------------------------------------------------------
+
+    def train_epoch(self, epoch: Optional[int] = None) -> Dict[str, float]:
+        """One training epoch over the shuffled train split (drop-last);
+        returns the metrics averaged over steps, weighted by real samples.
+        The per-step metrics stay on the device until the epoch ends and
+        are fetched in one transfer."""
+        epoch = self.epoch if epoch is None else epoch
+        siamese = self.style == "Full"
+        gate = 1.0 if epoch >= self.rampup else 0.0
+        augment_pairs = siamese and epoch >= self.rampup
+        steps, counts = [], []
+        for b in self.ds.batches("train", self.cfg.train.batch_size,
+                                 shuffle=True, drop_last=True, rng=self.np_rng):
+            batch = self._assemble(b, siamese=siamese,
+                                   augment_pairs=augment_pairs, full_mask=False)
+            steps.append(self.train_step(self._to_device(batch), gate,
+                                         self.generator))
+            counts.append(b.valid)
+        self.epoch = epoch + 1
+        if not steps:
+            return {}
+        dev_keys = [k for k, v in steps[0].items() if torch.is_tensor(v)]
+        stacked = torch.stack([torch.stack([m[k] for k in dev_keys])
+                               for m in steps]).cpu().numpy()  # one sync
+        w = np.asarray(counts, np.float64)
+        out = {k: float(np.sum(stacked[:, i] * w) / w.sum())
+               for i, k in enumerate(dev_keys)}
+        for k in steps[0]:
+            if k not in out:
+                out[k] = float(np.sum(np.asarray([m[k] for m in steps]) * w)
+                               / w.sum())
+        return out
+
+    def evaluate(self) -> Tuple[float, float, float, np.ndarray]:
+        """Validation pass with population BN stats: (loss, acc,
+        perdata_miou, pershape_miou [num_categories]), as
+        EvalOneEpoch_Full (:421-507)."""
+        losses, loss_w, accs, ious = [], [], [], []
+        shape_cnt = np.zeros(self.num_categories)
+        pershape = np.zeros(self.num_categories)
+        for b in self.ds.batches("val", self.cfg.train.batch_size):
+            batch = self._assemble(b, siamese=False, augment_pairs=False,
+                                   full_mask=True)
+            prob, loss = self.eval_step(self._to_device(batch))
+            prob = prob.cpu().numpy()[:b.valid]
+            losses.append(float(loss))
+            loss_w.append(b.valid)
+            for b_i in range(b.valid):
+                cat = int(b.label[b_i])
+                oids = self.meta.iou_oids(cat)
+                pred = category_biased_argmax(prob[b_i], oids)
+                iou = eval_iou(pred, b.seg[b_i], oids)
+                ious.append(iou)
+                accs.append(float(np.mean(pred == b.seg[b_i])))
+                pershape[cat] = (pershape[cat] * shape_cnt[cat] + iou) / (shape_cnt[cat] + 1)
+                shape_cnt[cat] += 1
+        return (
+            float(np.average(losses, weights=loss_w)) if losses else 0.0,
+            float(np.mean(accs)) if accs else 0.0,
+            float(np.mean(ious)) if ious else 0.0,
+            pershape,
+        )
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save_checkpoint(self, metric: float) -> Optional[str]:
+        """Format-v2 ``.npz`` of the parameters and BN stats (what the test
+        CLI restores); Adam's moments are not written."""
+        if self.ckpt is None:
+            return None
+        return self.ckpt.save(self.model, self.epoch, metric, step=self.opt.step)
 
     def restore_checkpoint(self, path: str) -> None:
         """Load a format-v2 ``.npz`` written by either package."""

@@ -1,5 +1,11 @@
-"""Eval composition. Counterpart of weaksuppointcloudseg_tpu/train/steps.py
-(``make_eval_logits_fn`` only; the training steps are still to port).
+"""Train and eval steps. Counterpart of weaksuppointcloudseg_tpu/train/
+steps.py (``_loss_fn``, ``_accuracy``, ``make_train_step``,
+``make_eval_logits_fn``, ``make_eval_step``).
+
+The reference jits one pure function per config; here the steps run
+eagerly and update the model (parameters, BN buffers) and the optimizer in
+place. Everything a step returns stays on the device: the caller fetches
+the metrics once per epoch.
 
 The reference pads N to a multiple of 512 before the fused TPU kernels
 (steps.py:265-278) only because Mosaic needs aligned tiles. The CUDA
@@ -9,11 +15,95 @@ honoured where a caller passes it.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
+from weaksuppointcloudseg_tpu_torch.configs import ExperimentConfig
+from weaksuppointcloudseg_tpu_torch.losses.weaksup import (
+    masked_softmax_ce,
+    total_weaksup_loss,
+)
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
+from weaksuppointcloudseg_tpu_torch.ops.schedules import (
+    bn_decay_schedule,
+    learning_rate_schedule,
+)
+from weaksuppointcloudseg_tpu_torch.train.state import Adam
+
+
+def loss_fn(model: DGCNNSeg, batch: Dict[str, torch.Tensor], *,
+            cfg: ExperimentConfig, style: str, bn_decay, gate,
+            generator: Optional[torch.Generator] = None):
+    """Training forward + loss (steps.py:88-124). Returns (total,
+    components incl. ``total``, logits); the model's BN buffers hold the
+    new population stats afterwards."""
+    logits = model(batch["data"], batch.get("cat_onehot"), training=True,
+                   bn_decay=bn_decay, generator=generator)
+    if style == "Full":
+        w = cfg.weaksup
+        total, components = total_weaksup_loss(
+            logits, batch["seg_onehot"], batch["mask"], batch["data"],
+            gate=gate, siamese_weight=w.siamese_weight,
+            smooth_gamma=w.smooth_gamma, smooth_knn=w.smooth_knn,
+            smooth_channels=w.smooth_channels, smooth_fast=cfg.model.knn_fast,
+            compat_frozen_gate=w.compat_frozen_gate)
+    else:
+        total = masked_softmax_ce(logits, batch["seg_onehot"], batch["mask"])
+        components = {"seg": total}
+    components["total"] = total
+    return total, components, logits
+
+
+def accuracy(logits: torch.Tensor, seg_labels: torch.Tensor,
+             valid_mask: torch.Tensor,
+             part_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fraction of correctly classified points over valid samples;
+    ``part_bias`` [B, K] (1.0 on the category's part ids) is the
+    reference's category-biased argmax (ShapeNet_DGCNN_trainer.py:199-201)."""
+    prob = torch.softmax(logits, dim=-1)
+    if part_bias is not None:
+        prob = prob + part_bias[:, None, :]
+    pred = torch.argmax(prob, dim=-1)
+    correct = (pred == seg_labels).float() * valid_mask[:, None]
+    den = torch.sum(valid_mask) * seg_labels.shape[1]
+    return torch.sum(correct) / torch.clamp_min(den, 1.0)
+
+
+def make_train_step(cfg: ExperimentConfig, model: DGCNNSeg, opt: Adam,
+                    style: Optional[str] = None) -> Callable:
+    """``(batch, gate, generator) -> metrics``: one Adam step on ``model``.
+
+    ``batch`` holds device tensors: data [B, N, C] (Full style: B = 2 x
+    unique, pairs interleaved), seg_onehot [B, N, K], seg [B, N] int, mask
+    [B, N], cat_onehot [B, num_categories], part_bias [B, K], valid [B].
+    ``gate`` is the rampup gate (epoch >= rampup: 1.0, else 0.0). The
+    metrics are seg, siamese, inexact, smooth (Full), total, acc as
+    device scalars and lr, bn_decay as host floats.
+    """
+    style = style or cfg.train.style
+    # the schedules count UNIQUE samples (train_ShapeNet.py:82)
+    batch_size = cfg.train.batch_size
+
+    def step(batch: Dict[str, torch.Tensor], gate,
+             generator: Optional[torch.Generator] = None):
+        lr = learning_rate_schedule(opt.step, batch_size, cfg.schedule)
+        bn_decay = bn_decay_schedule(opt.step, batch_size, cfg.schedule)
+        opt.zero_grad()
+        total, components, logits = loss_fn(
+            model, batch, cfg=cfg, style=style, bn_decay=bn_decay, gate=gate,
+            generator=generator)
+        total.backward()
+        opt.apply_gradients(lr)
+        metrics = {k: v.detach() for k, v in components.items()}
+        metrics["lr"] = lr
+        metrics["bn_decay"] = bn_decay
+        with torch.no_grad():
+            metrics["acc"] = accuracy(logits, batch["seg"], batch["valid"],
+                                      batch.get("part_bias"))
+        return metrics
+
+    return step
 
 
 def make_eval_logits_fn(model: DGCNNSeg) -> Callable:
@@ -26,3 +116,17 @@ def make_eval_logits_fn(model: DGCNNSeg) -> Callable:
         return model(x, cat_onehot, n_valid)
 
     return logits_fn
+
+
+def make_eval_step(model: DGCNNSeg) -> Callable:
+    """``batch -> (prob, loss)``: the eval forward with population BN
+    stats and no dropout, and the masked CE (steps.py:288-318)."""
+    logits_fn = make_eval_logits_fn(model)
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        logits = logits_fn(batch["data"], batch.get("cat_onehot"))
+        loss = masked_softmax_ce(logits, batch["seg_onehot"], batch["mask"])
+        return torch.softmax(logits, dim=-1), loss
+
+    return eval_step

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Dict, Tuple
 
 import numpy as np
@@ -118,3 +119,34 @@ def save_checkpoint(path: str, model: torch.nn.Module, *, epoch: int = 0,
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **arrays)
     return path
+
+
+class CheckpointManager:
+    """Rolling ``Checkpoint_epoch-<n>.npz`` files (the newest
+    ``max_to_keep``) plus ``Checkpoint_epoch-best.npz``, the copy with the
+    best metric so far (utils/checkpoint.py::CheckpointManager)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self._kept = []
+        self.best_metric = -np.inf
+        os.makedirs(directory, exist_ok=True)
+
+    def save(self, model: torch.nn.Module, epoch: int, metric: float, *,
+             step: int = 0) -> str:
+        path = save_checkpoint(
+            os.path.join(self.directory, f"Checkpoint_epoch-{epoch}.npz"),
+            model, epoch=epoch, step=step)
+        self._kept.append(path)
+        while len(self._kept) > self.max_to_keep:
+            old = self._kept.pop(0)
+            if os.path.exists(old):
+                os.remove(old)
+        if metric > self.best_metric:
+            self.best_metric = float(metric)
+            shutil.copyfile(path, self.best_path())
+        return path
+
+    def best_path(self) -> str:
+        return os.path.join(self.directory, "Checkpoint_epoch-best.npz")
