@@ -80,6 +80,12 @@ def bound(flops: float, kind: str, nbytes: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def gram_pairs(b: int, n: int) -> float:
+    """Dot products a self-distance kNN needs: the Gram x.x^T of each of
+    b clouds of n points is symmetric, so n (n + 1) / 2 per cloud."""
+    return b * n * (n + 1) / 2
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -178,8 +184,9 @@ def check_knn_edge(gen, report):
     ms = timed_ms(lambda: edgeconv.knn_edge(g, v, u, K, fast=True))
     plain_ms = timed_ms(lambda: edgeconv.knn_edge_ref(g, v, u, K, fast=True))
     idx, y, mom = edgeconv.knn_edge(g, v, u, K, fast=True)
-    # bf16 Gram (2 B N^2 Cg), inputs g, v, u, outputs idx, y1, moments
-    bnd = bound(2.0 * B * N * N * 64, "bf16", nbytes(g, v, u, idx, y, mom))
+    # half the bf16 Gram (symmetric), inputs g, v, u, outputs idx, y1, moments
+    bnd = bound(2.0 * gram_pairs(B, N) * 64, "bf16",
+                nbytes(g, v, u, idx, y, mom))
     print(f"  knn_edge B={B} N={N} k={K} Cg=C=64 fast: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
           f"{100 * bnd[0] / ms:.1f}% of bound")
@@ -316,7 +323,7 @@ def check_knn(gen, report):
         plain_ms = timed_ms(lambda: knn.knn_ref(x, k, fast=fast,
                                                 with_values=with_values))
         outs = (idx, sqd) if with_values else (idx,)
-        bnd = bound(2.0 * TB * TN * TN * c, "f32", nbytes(x, *outs))
+        bnd = bound(2.0 * gram_pairs(TB, TN) * c, "f32", nbytes(x, *outs))
         # orientation only: two library calls, and topk has no tie order
         pair_ms = timed_ms(lambda: torch.topk(torch.cdist(x, x), k, dim=-1,
                                               largest=False))

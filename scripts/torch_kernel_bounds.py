@@ -15,6 +15,10 @@ k=20, C=64 EdgeConv width, 50 classes, smooth k=10); S3DIS the Full-style
 batch of bench.py (B=28 = 14 x 2, N=4096, xyzrgb, 13 classes, smooth
 k=10); room LP one room of N=32768 points, 6 features, 13 classes, every
 tile computed (the kernel's bounding-box skip depends on the room).
+
+A distance or affinity of a cloud with itself is symmetric, so it is
+counted once per pair, diagonal included (chip_smoke.py::gram_pairs); the
+room-LP matvec still takes every ordered pair.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-from chip_smoke import bound  # noqa: E402
+from chip_smoke import bound, gram_pairs  # noqa: E402
 
 BF16, F32, I32 = 2, 4, 4
 
@@ -39,7 +43,7 @@ def rows():
     tnk = TB * TN * K
     return [
         ("B1", "edgeconv_pallas.py:610", "serving Cg=C=64 fast",
-         2.0 * SB * SN * SN * C, "bf16",
+         2.0 * gram_pairs(SB, SN) * C, "bf16",
          3 * SB * SN * C * BF16 + SB * SN * K * (I32 + C * BF16) + 2 * C * F32),
         ("B7", "conv_kmax_pallas.py:316", "serving 64->128",
          2.0 * SB * SN * K * 64 * 128, "bf16",
@@ -50,10 +54,14 @@ def rows():
          SB * SN * 128 * BF16 + 128 * 1024 * BF16 + 3 * 1024 * F32
          + SB * 1024 * F32),
         ("B12", "knn_pallas.py:192", "training C=64 k=20",
-         2.0 * TB * TN * TN * C, "f32", TB * TN * C * F32 + tnk * I32),
+         2.0 * gram_pairs(TB, TN) * C, "f32", TB * TN * C * F32 + tnk * I32),
+        ("B12", "knn_pallas.py:192", "training C=3 k=20",
+         2.0 * gram_pairs(TB, TN) * 3, "f32", TB * TN * 3 * F32 + tnk * I32),
         ("B13", "scatter_pallas.py:358", "training C=64",
          float(tnk * C), "f32",
          tnk * I32 + tnk * C * F32 + TB * TN * C * F32),
+        ("B13", "scatter_pallas.py:358", "training C=3",
+         float(tnk * 3), "f32", tnk * I32 + tnk * 3 * F32 + TB * TN * 3 * F32),
         ("B2", "conv_kmax_pallas.py:194", "training conv2 64->64",
          2.0 * tnk * C * C, "bf16",
          tnk * C * BF16 + TB * TN * C * 2 * (BF16 + I32)),
@@ -77,11 +85,11 @@ def rows():
          2.0 * TB * TN * 10 * 51, "f32",
          TB * TN * 10 * (I32 + F32) + 2 * TB * TN * 51 * F32),
         ("B9", "edgeconv_pallas.py:1010", "S3DIS xyzrgb k=10, 13+1 ch",
-         2.0 * RB * RN * RN * RC, "f32",
+         2.0 * gram_pairs(RB, RN) * RC, "f32",
          RB * RN * RC * F32 + RB * RN * 14 * BF16
          + RB * RN * RK * (I32 + F32) + RB * RN * 14 * F32),
         ("B10", "affinity_pallas.py:272", "room LP, one matvec",
-         LN * LN * (3.0 * LF + 2 * LK + 2), "f32",
+         gram_pairs(1, LN) * (3.0 * LF + 2) + LN * LN * 2.0 * LK, "f32",
          LN * LF * F32 + 2 * LN * LK * F32),
         ("B11", "edgeconv_pallas.py:862", "training C=64 (static graph)",
          2.0 * tnk * C, "bf16",
@@ -89,10 +97,10 @@ def rows():
         ("B14", "gather_pallas.py:64", "training C=64 bf16",
          0.0, "bf16", TB * TN * C * BF16 + tnk * (I32 + C * BF16)),
         ("B15", "edgeconv_pallas.py:286", "training Cg=C=64 bf16",
-         2.0 * TB * TN * TN * C, "bf16",
+         2.0 * gram_pairs(TB, TN) * C, "bf16",
          2 * TB * TN * C * BF16 + tnk * (I32 + C * BF16)),
         ("B17", "affinity_pallas.py:171", "room LP, one matvec",
-         LN * LN * (3.0 * LF + 2 * LK + 2), "f32",
+         gram_pairs(1, LN) * (3.0 * LF + 2) + LN * LN * 2.0 * LK, "f32",
          LN * LF * F32 + 2 * LN * LK * F32),
     ]
 

@@ -134,6 +134,52 @@ def test_knn_kernel(gen, c, k, fast):
     assert torch.equal(knn.knn(x, k, fast=fast), idx)
 
 
+@pytest.mark.parametrize("fast", [False, True])
+def test_knn_kernel_nan_point(gen, fast):
+    """A point with NaN features, as after a diverged step: its distance
+    row is all NaN and its column is NaN in every other row. The kernel
+    puts NaN after every number, in column order, as knn_ref's stable
+    sort does: every index stays in range, the NaN row selects 0..k-1
+    with NaN values, and no other row selects the NaN point."""
+    b, n, c, k = 2, 301, 8, 12
+    x = torch.randn((b, n, c), generator=gen, device="cuda")
+    x[1, 17] = float("nan")
+    idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
+    want = knn.knn_ref(x, k, fast=fast)
+    torch.cuda.synchronize()
+    assert int(idx.min()) >= 0 and int(idx.max()) < n
+    assert torch.equal(idx[1, 17], torch.arange(k, device="cuda", dtype=torch.int32))
+    assert bool(sqd[1, 17].isnan().all())
+    others = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    others[1, 17] = False
+    assert not bool((idx[1][others[1]] == 17).any())
+    assert bool(sqd[others].isfinite().all())
+    agree = (idx == want).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_knn_edge_kernel_nan_point(gen, fast):
+    """B1 with a NaN point in g: the same order as B12 (NaN after every
+    number, in column order), so the y1 gather stays in range and equals
+    v[idx] + u at the kernel's own indices."""
+    b, n, k, c = 2, 301, 12, 64
+    g, v, u = randn(gen, (b, n, 16)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    g[0, 5] = float("nan")
+    idx, y = edgeconv.knn_edge(g, v, u, k, fast=fast)[:2]
+    want = edgeconv.knn_edge_ref(g, v, u, k, fast=fast)[0]
+    torch.cuda.synchronize()
+    assert int(idx.min()) >= 0 and int(idx.max()) < n
+    assert torch.equal(idx[0, 5], torch.arange(k, device="cuda", dtype=torch.int32))
+    rows = torch.arange(n, device="cuda") != 5
+    assert not bool((idx[0, rows] == 5).any())
+    bi = torch.arange(b, device="cuda")[:, None, None]
+    assert torch.equal(y, (v.float()[bi, idx.long()] + u.float()[:, :, None, :]).to(
+        torch.bfloat16))
+    agree = (idx == want).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+
+
 @pytest.mark.parametrize("c,n", [(64, 300), (3, 1000)])
 def test_scatter_add_kernel(gen, c, n):
     """B13 against index_add_: f32 atomics sum in a run-dependent order,

@@ -78,6 +78,22 @@ def test_fast_mode_agreement(c):
                                np.sort(np.asarray(want_sqd), -1), atol=tol)
 
 
+@pytest.mark.parametrize("fast", [False, True])
+def test_nan_point_sorts_last(fast):
+    """The order the CUDA kernels are held to for a point with NaN
+    features: NaN distances come after every number, in column order, so
+    the NaN point's row selects 0..k-1 with NaN values and no other row
+    selects it."""
+    x = torch.from_numpy(points(9, 2, 64, 3))
+    x[1, 17] = float("nan")
+    idx, sqd = knn.knn(x, 10, fast=fast, with_values=True)
+    np.testing.assert_array_equal(idx[1, 17].numpy(), np.arange(10))
+    assert bool(sqd[1, 17].isnan().all())
+    rows = torch.arange(64) != 17
+    assert not bool((idx[1, rows] == 17).any())
+    assert bool(sqd[1, rows].isfinite().all() and sqd[0].isfinite().all())
+
+
 def test_fused_graph_matches_plain_graph():
     """neighbors.knn_graph_fused (B12's route) and the plain distance +
     stable sort give the same exact graph."""

@@ -60,7 +60,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libwspc_kernels.so"
@@ -81,6 +81,22 @@ def _run_all(cmds) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def compile_library(out: Path) -> None:
+    """Compile every source into the shared library ``out``: one ``nvcc``
+    per source, all started together, then one link."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f".{src.stem}.{tag}.o") for src in _sources()]
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+    tmp = out.with_name(f".{out.name}.{tag}")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    for obj in objs:
+        obj.unlink()
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first use."""
     global _lib, build_seconds
@@ -88,19 +104,9 @@ def library() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tag = f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        objs = [out.with_name(f".{src.stem}.{tag}.o") for src in _sources()]
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(_sources(), objs)])
-        tmp = out.with_name(f".{out.name}.{tag}")
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                   *map(str, objs)]])
+        compile_library(out)
         build_seconds = time.perf_counter() - t0
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-        for obj in objs:
-            obj.unlink()
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,12 +11,15 @@
 // the lowest index (lax.top_k's order); fast mode clamps d at 0 and takes one
 // min over the packed int32 "distance bits with the low idx_bits replaced by
 // the column", so near-ties may order differently (held to an agreement
-// rate).
+// rate). In both modes NaN distances come after +inf, in column order, as
+// the plain version's stable sort puts them.
 //
-// What bounds it on an H100: the distance pass is B*N*N*C f32 FMAs on the
-// CUDA cores (2*B*N^2*C = 34.4 GFLOP at B=64, N=2048, C=64: 0.51 ms at the
-// 67 TFLOP/s f32 peak); the outputs are a few MB. At C=3 the k selection
-// rounds over N-wide rows take the time, not the arithmetic.
+// What bounds it on an H100: the distance pass. The Gram is symmetric, so
+// the function needs B*N*(N+1)/2 dot products of C f32 FMAs (17.2 GFLOP at
+// B=64, N=2048, C=64: 0.257 ms at the 67 TFLOP/s f32 peak); this kernel
+// computes every (i, j) and so does twice that. The outputs are a few MB.
+// At C=3 the k selection rounds over N-wide rows take the time, not the
+// arithmetic.
 //
 // Design (B1's, ops/csrc/knn_edge.cu, without its y1/moments epilogue and
 // with f32 inputs): one block holds ROWS query rows and their full distance
@@ -29,13 +32,16 @@
 // aligned) the next tile's float4 loads are issued into registers before
 // the current tile is computed. Channels are summed in order 0..C-1 with
 // fmaf in every chain.
-// Selection: one warp per row; each lane keeps the minimum of its strided
-// subset of columns; a round is a warp shuffle argmin over the 32 lane
-// minima, after which only the lane that owned the winner rescans.
+// Selection (select.cuh): the distance rows are stored as int32 keys; one
+// warp per row; each lane keeps the minimum of its strided subset of
+// columns; a round is a warp shuffle argmin over the 32 lane minima, after
+// which only the lane that owned the winner rescans.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "select.cuh"
 
 namespace {
 
@@ -43,7 +49,6 @@ constexpr int ROWS = 8;                   // query rows per block (one warp each
 constexpr int THREADS = 32 * ROWS;
 constexpr int TJ = THREADS;               // columns per staged tile (one each)
 constexpr int MAXQ = 16;                  // float4 chunks a thread prefetches
-constexpr int FAST_KNOCKOUT = 0x7F7FFFFF; // selected packed entries
 
 // |x_p|^2 in f32, channels summed in order (one thread per point).
 __global__ void sqnorm_kernel(const float* __restrict__ x, int points, int C,
@@ -56,34 +61,6 @@ __global__ void sqnorm_kernel(const float* __restrict__ x, int points, int C,
     s = __fadd_rn(s, __fmul_rn(v, v));
   }
   norms[p] = s;
-}
-
-// Lane-local minimum over columns lane, lane+32, ... (the scan runs in
-// increasing column order with a strict compare, so the lowest index wins).
-template <bool FAST>
-__device__ __forceinline__ void lane_min(const float* drow, int n, int lane,
-                                         float& best_v, int& best_i) {
-  if (FAST) {
-    const int* prow = reinterpret_cast<const int*>(drow);
-    int bv = 0x7FFFFFFF, bi = 0x7FFFFFFF;
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) {
-      const int v = prow[j];
-      if (v < bv) { bv = v; bi = j; }
-    }
-    best_v = __int_as_float(bv);
-    best_i = bi;
-  } else {
-    float bv = INFINITY;
-    int bi = 0x7FFFFFFF;
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) {
-      const float v = drow[j];
-      if (v < bv || (v == bv && j < bi)) { bv = v; bi = j; }
-    }
-    best_v = bv;
-    best_i = bi;
-  }
 }
 
 // Stage points [p0, p0 + count) of x (row length C) as rows of `stride`
@@ -144,7 +121,7 @@ __global__ void __launch_bounds__(THREADS) knn_kernel(
 
   float* xs = reinterpret_cast<float*>(smem4);  // [TJ][stride] column tile
   float* xr = xs + TJ * stride;                 // [ROWS][stride] query rows
-  float* dist = xr + ROWS * stride;             // [ROWS][N] f32 or packed i32
+  int* dist = reinterpret_cast<int*>(xr + ROWS * stride);  // [ROWS][N] keys
 
   const float* xb = x + (size_t)b * N * C;
   const float* nb = norms + (size_t)b * N;
@@ -199,13 +176,7 @@ __global__ void __launch_bounds__(THREADS) knn_kernel(
     for (int q = 0; q < ROWS; ++q) {
       float d = __fadd_rn(__fmul_rn(-2.f, acc[q]), rn[q]);
       d = __fadd_rn(d, cn);
-      float* slot = dist + (size_t)q * N + j;
-      if (FAST) {
-        d = fmaxf(d, 0.f);
-        *reinterpret_cast<int*>(slot) = (__float_as_int(d) & ~idx_mask) | j;
-      } else {
-        *slot = d;
-      }
+      dist[(size_t)q * N + j] = FAST ? fast_key(d, j, idx_mask) : order_key(d);
     }
   }
   __syncthreads();
@@ -213,35 +184,23 @@ __global__ void __launch_bounds__(THREADS) knn_kernel(
   // ---- k selection rounds, one warp per row ----
   const int row = row0 + warp;
   if (row >= N) return;
-  float* drow = dist + (size_t)warp * N;
-  float lv;
-  int li;
-  lane_min<FAST>(drow, N, lane, lv, li);
+  int* drow = dist + (size_t)warp * N;
+  int lk, lc;
+  lane_min(drow, N, lane, lk, lc);
   const size_t ko = ((size_t)b * N + row) * k;
   for (int round = 0; round < k; ++round) {
-    float bv = lv;
-    int bi = li;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      const bool take = FAST ? __float_as_int(ov) < __float_as_int(bv)
-                             : (ov < bv || (ov == bv && oi < bi));
-      if (take) { bv = ov; bi = oi; }
-    }
+    int bk = lk, bc = lc;
+    warp_min<FAST>(bk, bc);
     if (lane == 0) {
-      idx_out[ko + round] = FAST ? (__float_as_int(bv) & idx_mask) : bi;
+      idx_out[ko + round] = bc;
       if (sqd_out != nullptr) {
         sqd_out[ko + round] =
-            FAST ? __int_as_float(__float_as_int(bv) & ~idx_mask) : bv;
+            FAST ? __int_as_float(bk & ~idx_mask) : key_value(bk);
       }
     }
-    if ((bi & 31) == lane) {  // the owner knocks the winner out, rescans
-      if (FAST) {
-        reinterpret_cast<int*>(drow)[bi] = FAST_KNOCKOUT;
-      } else {
-        drow[bi] = INFINITY;
-      }
-      lane_min<FAST>(drow, N, lane, lv, li);
+    if ((bc & 31) == lane) {  // the owner knocks the winner out, rescans
+      drow[bc] = KEY_KNOCKOUT;
+      lane_min(drow, N, lane, lk, lc);
     }
   }
 }

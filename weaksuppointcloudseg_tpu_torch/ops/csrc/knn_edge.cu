@@ -30,8 +30,9 @@
 // ROWS FMA chains (the query rows' float4 loads are warp broadcasts). The
 // next tile's loads are issued before the current tile is computed.
 // Channels are summed in order 0..Cg-1 in every chain.
-// Selection: one warp per row. Each lane keeps the minimum of its strided
-// subset of columns; a round is a warp shuffle argmin over the 32 lane
+// Selection (select.cuh): the distance rows are stored as int32 keys (NaN
+// after +inf, as in the plain version). One warp per row. Each lane keeps
+// the minimum of its strided subset of columns; a round is a warp shuffle argmin over the 32 lane
 // minima, after which only the lane that owned the winner rescans its
 // subset - k rounds cost k shuffles plus k rescans of N/32 entries.
 // The y1 pass gives each lane the channels lane, lane+32, ... of its row,
@@ -45,12 +46,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "select.cuh"
+
 namespace {
 
 constexpr int ROWS = 8;                   // query rows per block (one warp each)
 constexpr int THREADS = 32 * ROWS;
 constexpr int TJ = THREADS;               // columns per staged tile (one each)
-constexpr int FAST_KNOCKOUT = 0x7F7FFFFF; // selected packed entries
 constexpr int FAST_PAD = 0x7F000000;      // packed columns >= n_valid
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -68,34 +70,6 @@ __global__ void sqnorm_kernel(const __nv_bfloat16* __restrict__ g, int points,
     s = __fadd_rn(s, __fmul_rn(x, x));
   }
   norms[p] = s;
-}
-
-// Lane-local minimum over columns lane, lane+32, ... (first index wins ties
-// because the scan is in increasing column order with a strict compare).
-template <bool FAST>
-__device__ __forceinline__ void lane_min(const float* drow, int n, int lane,
-                                         float& best_v, int& best_i) {
-  if (FAST) {
-    const int* prow = reinterpret_cast<const int*>(drow);
-    int bv = 0x7FFFFFFF, bi = 0x7FFFFFFF;
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) {
-      int x = prow[j];
-      if (x < bv) { bv = x; bi = j; }
-    }
-    best_v = __int_as_float(bv);
-    best_i = bi;
-  } else {
-    float bv = INFINITY;
-    int bi = 0x7FFFFFFF;
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) {
-      float x = drow[j];
-      if (x < bv || (x == bv && j < bi)) { bv = x; bi = j; }
-    }
-    best_v = bv;
-    best_i = bi;
-  }
 }
 
 // Stage points [p0, p0 + count) of g (row length Cg) as f32 rows of
@@ -174,8 +148,8 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
 
   float* gs = reinterpret_cast<float*>(smem4);  // [TJ][stride] column tile
   float* gr = gs + TJ * stride;                 // [ROWS][stride] query rows
-  float* dist = gr + ROWS * stride;             // [ROWS][N] f32 or packed i32
-  float* msum = dist + (size_t)ROWS * N;        // [2][C] block moments
+  int* dist = reinterpret_cast<int*>(gr + ROWS * stride);  // [ROWS][N] keys
+  float* msum = reinterpret_cast<float*>(dist + (size_t)ROWS * N);  // [2][C] moments
   int* sel = reinterpret_cast<int*>(msum + 2 * C);  // [ROWS][k]
 
   const __nv_bfloat16* gb = g + (size_t)b * N * Cg;
@@ -232,13 +206,11 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
     for (int q = 0; q < ROWS; ++q) {
       float d = __fadd_rn(__fmul_rn(-2.f, acc[q]), rn[q]);
       d = __fadd_rn(d, cn);
-      float* slot = dist + (size_t)q * N + j;
+      int* slot = dist + (size_t)q * N + j;
       if (FAST) {
-        d = fmaxf(d, 0.f);
-        *reinterpret_cast<int*>(slot) = j < n_valid
-            ? ((__float_as_int(d) & ~idx_mask) | j) : (FAST_PAD | j);
+        *slot = j < n_valid ? fast_key(d, j, idx_mask) : (FAST_PAD | j);
       } else {
-        *slot = j < n_valid ? d : INFINITY;
+        *slot = order_key(j < n_valid ? d : INFINITY);
       }
     }
   }
@@ -247,41 +219,24 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
   // ---- k selection rounds, one warp per row ----
   const int row = row0 + warp;
   if (row < N) {
-    float* drow = dist + (size_t)warp * N;
-    float lv;
-    int li;
-    lane_min<FAST>(drow, N, lane, lv, li);
+    int* drow = dist + (size_t)warp * N;
+    int lk, lc;
+    lane_min(drow, N, lane, lk, lc);
     const size_t ko = ((size_t)b * N + row) * k;
     for (int round = 0; round < k; ++round) {
-      float bv = lv;
-      int bi = li;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        bool take;
-        if (FAST) {
-          take = __float_as_int(ov) < __float_as_int(bv);
-        } else {
-          take = ov < bv || (ov == bv && oi < bi);
-        }
-        if (take) { bv = ov; bi = oi; }
-      }
-      const int colsel = FAST ? (__float_as_int(bv) & idx_mask) : bi;
+      int bk = lk, bc = lc;
+      warp_min<FAST>(bk, bc);
       if (lane == 0) {
-        sel[warp * k + round] = colsel;
-        idx_out[ko + round] = colsel;
+        sel[warp * k + round] = bc;
+        idx_out[ko + round] = bc;
         if (sqd_out != nullptr) {
           sqd_out[ko + round] =
-              FAST ? __int_as_float(__float_as_int(bv) & ~idx_mask) : bv;
+              FAST ? __int_as_float(bk & ~idx_mask) : key_value(bk);
         }
       }
-      if ((bi & 31) == lane) {  // the owner knocks the winner out, rescans
-        if (FAST) {
-          reinterpret_cast<int*>(drow)[bi] = FAST_KNOCKOUT;
-        } else {
-          drow[bi] = INFINITY;
-        }
-        lane_min<FAST>(drow, N, lane, lv, li);
+      if ((bc & 31) == lane) {  // the owner knocks the winner out, rescans
+        drow[bc] = KEY_KNOCKOUT;
+        lane_min(drow, N, lane, lk, lc);
       }
     }
     __syncwarp();

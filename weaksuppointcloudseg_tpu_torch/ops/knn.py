@@ -48,7 +48,8 @@ def select_ref(d: torch.Tensor, k: int, *, fast: bool,
     promises no tie order), values unclamped. Fast: d clamped at 0, one
     top-k over the packed "distance bits | column" int32, whose low
     ``idx_bits(N)`` mantissa bits are dropped from the values. Columns >=
-    n_valid are never selected.
+    n_valid are never selected. In both modes NaN distances come after
+    every number, in column order (the CUDA kernels keep that order).
     """
     n = d.shape[-1]
     nv = n if n_valid is None else min(n_valid, n)
