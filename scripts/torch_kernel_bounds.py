@@ -11,7 +11,9 @@ it computes the same bound from the tensors it times.
 
 Shapes: serving is the ShapeNet test batch (B=32 views x N=3000, k=20);
 training the Full-style batch (B=64 clouds = 32 unique x 2, N=2048,
-k=20, C=64 EdgeConv width, 50 classes, smooth k=10); S3DIS the Full-style
+k=20, C=64 EdgeConv width, 50 classes, smooth k=10); the fused training
+kernels B2-B5 the Plain-style bf16 batch of bench.py's
+shapenet_plain_train_throughput (B=32 clouds, N=2048, k=20); S3DIS the Full-style
 batch of bench.py (B=28 = 14 x 2, N=4096, xyzrgb, 13 classes, smooth
 k=10); room LP one room of N=32768 points, 6 features, 13 classes, every
 tile computed (the kernel's bounding-box skip depends on the room).
@@ -34,6 +36,7 @@ BF16, F32, I32 = 2, 4, 4
 # serving, training, S3DIS and room-LP shapes
 SB, SN = 32, 3000
 TB, TN, K, C = 64, 2048, 20, 64
+PB = 32  # the Plain-style bf16 training batch
 RB, RN, RC, RK = 28, 4096, 6, 10
 LN, LF, LK = 32768, 6, 13
 
@@ -62,22 +65,7 @@ def rows():
          tnk * I32 + tnk * C * F32 + TB * TN * C * F32),
         ("B13", "scatter_pallas.py:358", "training C=3",
          float(tnk * 3), "f32", tnk * I32 + tnk * 3 * F32 + TB * TN * 3 * F32),
-        ("B2", "conv_kmax_pallas.py:194", "training conv2 64->64",
-         2.0 * tnk * C * C, "bf16",
-         tnk * C * BF16 + TB * TN * C * 2 * (BF16 + I32)),
-        ("B3", "conv_kmax_pallas.py:592", "training conv2 backward",
-         4 * 2.0 * tnk * C * C, "bf16",
-         2 * tnk * C * BF16 + TB * TN * C * (F32 + I32)),
-        ("B5", "conv_kmax_pallas.py:739", "training agg_conv 192->1024",
-         2.0 * TB * TN * 192 * 1024, "bf16",
-         TB * TN * 192 * BF16 + 192 * 1024 * BF16 + TB * 1024 * 2 * (F32 + I32)),
-        ("B5", "conv_kmax_pallas.py:847", "training agg_conv backward",
-         3 * 2.0 * TB * TN * 192 * 1024, "bf16",
-         2 * TB * TN * 192 * BF16 + 192 * 1024 * (BF16 + F32)
-         + TB * 1024 * (F32 + I32)),
-        ("B4", "scatter_pallas.py:229", "training C=64, dense dz",
-         4.0 * tnk * C, "f32",
-         tnk * I32 + 2 * tnk * C * BF16 + 2 * TB * TN * C * F32),
+        *slice3_rows(),
         ("B6", "edgeconv_pallas.py:1139", "training smooth k=10, 50+1 ch",
          2.0 * TB * TN * 10 * 51, "f32",
          TB * TN * 10 * (I32 + F32) + TB * TN * 51 * (BF16 + F32)),
@@ -103,6 +91,45 @@ def rows():
          gram_pairs(1, LN) * (3.0 * LF + 2) + LN * LN * 2.0 * LK, "f32",
          LN * LF * F32 + 2 * LN * LK * F32),
     ]
+
+
+def slice3_rows():
+    """B2-B5 at the Plain-style bf16 batch, counted as chip_smoke.py's
+    checks count them: inputs read once, outputs written once; B3's
+    routed products (one slot per point and channel) at the work they
+    need; the bf16 operations at the bf16 tensor rate."""
+    pn, pnk = PB * TN, PB * TN * K
+    rows = []
+    for c2 in (64, 128):
+        rows.append((
+            "B2", "conv_kmax_pallas.py:194", f"conv2 64->{c2} (B=32)",
+            2.0 * pnk * C * c2, "bf16",
+            pnk * C * BF16 + C * c2 * BF16 + c2 * F32 + 2 * C * F32
+            + pn * c2 * 2 * (BF16 + I32) + 2 * c2 * F32))
+    for c2 in (64, 128):
+        rows.append((
+            "B3", "conv_kmax_pallas.py:592", f"conv2 64x{c2} backward (B=32)",
+            2.0 * pnk * C * C * 2 + 2.0 * pn * c2 * C * 2, "bf16",
+            2 * pnk * C * BF16 + pn * c2 * (F32 + I32) + c2 * C * BF16
+            + C * C * BF16 + 5 * C * F32 + (C * c2 + C * C + 3 * C) * F32))
+    for mode, big in (("dense dz", pnk * C * BF16 + C * F32),
+                      ("sparse q/asel", pn * C * (F32 + I32))):
+        rows.append((
+            "B4", "scatter_pallas.py:229", f"C=64, {mode} (B=32)",
+            5.0 * pnk * C, "f32",
+            pnk * I32 + pnk * C * BF16 + big + 2 * C * F32 + 2 * pn * C * F32))
+    for c1 in (128, 192):
+        rows.append((
+            "B5", "conv_kmax_pallas.py:739", f"{c1}->1024 (B=32)",
+            2.0 * pn * c1 * 1024, "bf16",
+            pn * c1 * BF16 + c1 * 1024 * BF16 + 1024 * F32
+            + PB * 1024 * 2 * (F32 + I32) + 2 * 1024 * F32))
+        rows.append((
+            "B5", "conv_kmax_pallas.py:847", f"{c1}->1024 backward (B=32)",
+            3 * 2.0 * pn * c1 * 1024, "bf16",
+            2 * pn * c1 * BF16 + PB * 1024 * (F32 + I32) + c1 * 1024 * BF16
+            + 3 * 1024 * F32 + c1 * 1024 * F32 + 1024 * F32))
+    return rows
 
 
 def main() -> None:

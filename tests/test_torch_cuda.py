@@ -9,6 +9,7 @@ Shapes are small and ragged (N not a multiple of any tile) to reach the
 kernels' edge handling; chip_smoke.py checks the production shapes.
 """
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -239,6 +240,277 @@ def test_train_step_on_cuda_matches_cpu(gen):
         assert err <= 1e-2 * w.abs().max().item() + 1e-4 * scale, name
 
 
+def ints(gen, shape, lo=-3, hi=4, dtype=torch.bfloat16):
+    """Small integers: every product and sum is exact in f32 whatever the
+    order, so a kernel must equal its plain version bitwise, ties (many
+    among small integers) included."""
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda").to(dtype)
+
+
+def within_sums(got, want, mags, tol=1e-5, atol=1e-6):
+    """f32 sums in another order (atomics): tol of the sum of magnitudes."""
+    assert bool(((got - want).abs() <= tol * mags + atol).all())
+
+
+@pytest.mark.parametrize("c2,exact", [(64, False), (128, False), (96, False),
+                                      (128, True)])
+def test_conv_minmax_kernel(gen, c2, exact):
+    """B2: exact inputs bitwise; random ones: extrema within one bf16 ulp
+    of y, the plain y at the kernel's slot equal to the kernel's extremum
+    within an ulp, slots agreeing on >= 99%, moments 1e-5 of the sums of
+    magnitudes."""
+    c1 = 64
+    shape = (2, 333, 20, c1)
+    if exact:
+        h1, w2, b2 = ints(gen, shape), ints(gen, (c1, c2), -1, 2), ints(
+            gen, (c2,), dtype=torch.float32)
+        sc1 = torch.tensor([-1.0, 0.5, 1.0, 2.0], device="cuda")[
+            torch.randint(0, 4, (c1,), generator=gen, device="cuda")]
+        sh1 = ints(gen, (c1,), -1, 2, torch.float32)
+    else:
+        h1, w2 = randn(gen, shape), randn(gen, (c1, c2), scale=0.2)
+        b2 = randn(gen, (c2,), torch.float32)
+        sc1, sh1 = randn(gen, (c1,), torch.float32), randn(gen, (c1,), torch.float32)
+    before = conv_kmax.conv_minmax.launches
+    got = conv_kmax.conv_minmax(h1, w2, b2, sc1, sh1)
+    assert conv_kmax.conv_minmax.launches == before + 1
+    want = conv_kmax.conv_minmax_ref(h1, w2, b2, sc1, sh1)
+    y = (torch.matmul(conv_kmax._act(h1, sc1, sh1), w2.float()) + b2).to(
+        torch.bfloat16).float()
+    within_sums(got[4], want[4], torch.stack([y.abs().sum((0, 1, 2)),
+                                              (y * y).sum((0, 1, 2))]))
+    if exact:
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w)
+        return
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert torch.allclose(g.float(), w.float(), rtol=2.0 ** -7, atol=1e-6)
+    for a, ext in ((got[1], got[0]), (got[3], got[2])):
+        at = torch.gather(y, 2, a.long()[:, :, None])[:, :, 0]
+        assert torch.allclose(at, ext.float(), rtol=2.0 ** -7, atol=1e-6)
+    assert (got[1] == want[1]).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("c1,n,exact", [(192, 1111, False), (128, 700, True),
+                                         (64, 37, False)])
+def test_conv_nmax_kernel(gen, c1, n, exact):
+    """B5 forward, as B2's test: the lowest row wins ties across the
+    kernel's row splits (exact inputs)."""
+    if exact:
+        h, w = ints(gen, (3, n, c1), 0, 2), ints(gen, (c1, 1024), -1, 2)
+        b = ints(gen, (1024,), dtype=torch.float32)
+    else:
+        h, w = randn(gen, (3, n, c1)), randn(gen, (c1, 1024), scale=0.1)
+        b = randn(gen, (1024,), torch.float32)
+    before = conv_kmax.conv_nmax.launches
+    got = conv_kmax.conv_nmax(h, w, b)
+    assert conv_kmax.conv_nmax.launches == before + 1
+    want = conv_kmax.conv_nmax_ref(h, w, b)
+    y = (torch.matmul(h.float(), w.float()) + b).to(torch.bfloat16).float()
+    within_sums(got[4], want[4], torch.stack([y.abs().sum((0, 1)),
+                                              (y * y).sum((0, 1))]))
+    if exact:
+        assert bool(((y == y.amax(1, keepdim=True)).sum(1) > 1).any())
+        for g, w_ in zip(got[:4], want[:4]):
+            assert torch.equal(g, w_)
+        return
+    for g, w_ in ((got[0], want[0]), (got[2], want[2])):
+        assert torch.allclose(g, w_, rtol=2.0 ** -7, atol=1e-6)
+    for a, ext in ((got[1], got[0]), (got[3], got[2])):
+        assert torch.allclose(torch.gather(y, 1, a.long()[:, None])[:, 0], ext,
+                              rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("c2,exact", [(128, False), (64, False), (64, True),
+                                      (128, True)])
+def test_conv_kmax_bwd_kernel(gen, c2, exact):
+    """B3 at an odd point count: exact inputs bitwise; random ones: dz
+    within one bf16 ulp (f32 sums in another order, then one rounding),
+    the reductions 1e-5 of the sums of magnitudes (atomics)."""
+    b, n, k, c1 = 2, 301, 20, 64
+    if exact:
+        y1, q = ints(gen, (b, n, k, c1)), ints(gen, (b, n, c2), dtype=torch.float32)
+        w2t, m = ints(gen, (c2, c1), -1, 2), ints(gen, (c1, c1), -1, 2)
+        row0 = ints(gen, (c1,), dtype=torch.float32)
+        pick = lambda vals: torch.tensor(vals, device="cuda")[
+            torch.randint(0, len(vals), (c1,), generator=gen, device="cuda")]
+        consts = (pick([-1.0, 0.5, 1.0, 2.0]), ints(gen, (c1,), -1, 2, torch.float32),
+                  ints(gen, (c1,), -1, 2, torch.float32), pick([0.5, 1.0, 2.0]))
+    else:
+        y1, q = randn(gen, (b, n, k, c1)), randn(gen, (b, n, c2), torch.float32)
+        w2t, m = randn(gen, (c2, c1), scale=0.2), randn(gen, (c1, c1), scale=0.1)
+        row0 = randn(gen, (c1,), torch.float32, 0.1)
+        consts = tuple(randn(gen, (c1,), torch.float32) for _ in range(3)) + (
+            torch.rand((c1,), generator=gen, device="cuda") + 0.5,)
+    asel = torch.randint(0, k, (b, n, c2), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    before = conv_kmax.conv_kmax_bwd.launches
+    got = conv_kmax.conv_kmax_bwd(y1, q, asel, w2t, m, row0, *consts)
+    assert conv_kmax.conv_kmax_bwd.launches == before + 1
+    want = conv_kmax.conv_kmax_bwd_ref(y1, q, asel, w2t, m, row0, *consts)
+    if exact:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    scale = want[0].float().abs().max()
+    assert torch.allclose(got[0].float(), want[0].float(), rtol=2.0 ** -7,
+                          atol=1e-5 * scale.item())
+    h = conv_kmax._act(y1, *consts[:2]).abs()
+    dq = q.to(torch.bfloat16).float().abs()
+    onek = asel[:, :, None, :] == torch.arange(k, device="cuda")[:, None]
+    within_sums(got[1], want[1], torch.einsum("bnji,bnjc->ic", h, onek * dq[:, :, None]))
+    within_sums(got[2], want[2], torch.einsum("bnji,bnjl->il", h, h))
+    within_sums(got[3], want[3], h.sum((0, 1, 2)))
+    dz = want[0].float().abs()
+    xhat = (y1.float().abs() + consts[2].abs()) * consts[3]
+    within_sums(got[4], want[4], torch.stack([dz.sum((0, 1, 2)),
+                                              (dz * xhat).sum((0, 1, 2))]))
+
+
+def on_grid(gen, shape, scale, step, lim, dtype=torch.float32):
+    """Normal values rounded to multiples of ``step``, at most ``lim``
+    steps from 0."""
+    x = torch.randn(shape, generator=gen, device="cuda") * (scale / step)
+    return (x.round().clamp(-lim, lim) * step).to(dtype)
+
+
+@pytest.mark.parametrize("c1,n,inputs", [(192, 2048, "grid"), (128, 333, "grid"),
+                                          (64, 129, "ints"), (192, 2048, "ints")])
+def test_conv_nmax_bwd_kernel(gen, c1, n, inputs):
+    """B5 backward on the tensor cores. Small integers: bitwise, which
+    pins the rounding of dy to bf16 before the products. Grid inputs: h on
+    a 2^-7 grid below 2, w on a 2^-6 grid, the bias on their products'
+    2^-13 grid, so y = h @ W + b is exact in f32 in any order and the
+    kernel rounds the same y (and dy) as the plain version; then dh is
+    held to one bf16 ulp of its exact value plus 1e-5 of the sum of its
+    terms' magnitudes, dW and db to 1e-5 of theirs, the magnitudes taken
+    from the true cotangent (q at its row only)."""
+    b, c2 = 2, 1024
+    if inputs == "ints":
+        h, w = ints(gen, (b, n, c1), 0, 2), ints(gen, (c1, c2), -1, 2)
+        bias, q = ints(gen, (c2,), dtype=torch.float32), ints(gen, (b, c2), dtype=torch.float32)
+        al = ints(gen, (c2,), dtype=torch.float32)
+        be = torch.tensor([-0.5, 0.25, 1.0], device="cuda")[
+            torch.randint(0, 3, (c2,), generator=gen, device="cuda")]
+    else:
+        h = on_grid(gen, (b, n, c1), 1.0, 2.0 ** -7, 255, torch.bfloat16)
+        w = on_grid(gen, (c1, c2), 0.1, 2.0 ** -6, 127, torch.bfloat16)
+        bias = on_grid(gen, (c2,), 0.1, 2.0 ** -13, 2 ** 13)
+        q, al, be = (randn(gen, s, torch.float32, 0.1)
+                     for s in ((b, c2), (c2,), (c2,)))
+    asel = torch.randint(0, n, (b, c2), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    before = conv_kmax.conv_nmax_bwd.launches
+    got = conv_kmax.conv_nmax_bwd(h, q, asel, w, bias, al, be)
+    assert conv_kmax.conv_nmax_bwd.launches == before + 1
+    if inputs == "ints":
+        for g, w_ in zip(got, conv_kmax.conv_nmax_bwd_ref(h, q, asel, w, bias,
+                                                          al, be)):
+            assert torch.equal(g, w_)
+        return
+    dy, dyc = conv_kmax.nmax_bwd_cotangent(h, q, asel, w, bias, al, be)
+    h64, w64, d64 = h.double(), w.double(), dyc.double()
+    dh = d64 @ w64.t()
+    assert bool(((got[0].double() - dh).abs()
+                 <= 2.0 ** -7 * dh.abs() + 1e-5 * (d64.abs() @ w64.abs().t())).all())
+    dw = torch.einsum("bni,bno->io", h64, d64)
+    within_sums(got[1].double(), dw, torch.einsum("bni,bno->io", h64.abs(), d64.abs()),
+                atol=0.0)
+    within_sums(got[2].double(), dy.double().sum((0, 1)),
+                dy.double().abs().sum((0, 1)), atol=0.0)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_scatter_bn_bwd_kernel(gen, sparse):
+    """B4 against its plain version: du sums the same f32 dy in slot order
+    (1e-6 of the magnitudes), dv adds bf16(dy) with atomics (1e-5)."""
+    b, p, k, n, c = 2, 333, 20, 300, 64
+    idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    y = randn(gen, (b, p, k, c))
+    sv, al, be = (randn(gen, (c,), torch.float32) for _ in range(3))
+    if sparse:
+        q = randn(gen, (b, p, c), torch.float32)
+        asel = torch.randint(0, k, (b, p, c), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        big, first = (q, asel), torch.where(
+            asel[:, :, None, :] == torch.arange(k, device="cuda")[:, None],
+            q[:, :, None, :], 0.0)
+    else:
+        big = randn(gen, (b, p, k, c))
+        first = sv * big.float()
+    before = scatter.scatter_bn_bwd.launches
+    dv, du = scatter.scatter_bn_bwd(idx, y, big, sv, al, be, n)
+    assert scatter.scatter_bn_bwd.launches == before + 1
+    want_dv, want_du = scatter.scatter_bn_bwd_ref(idx, y, big, sv, al, be, n)
+    mag = first.abs() + al.abs() + (be * y.float()).abs()
+    within_sums(du, want_du, mag.sum(2), tol=1e-6)
+    within_sums(dv, want_dv, scatter.scatter_add_ref(idx, mag, n))
+
+
+def test_fused_train_step_on_cuda_matches_cpu(gen):
+    """One Plain-style bf16 step of a narrow ShapeNet model through the
+    fused blocks on the card (B1-B5) against the same step over the plain
+    versions on the CPU, the CPU replaying the card's kNN indices and BN
+    moments (utils/replay.py: without it the moments' atomic sums move
+    later stages' neighbours among near-ties). Each fused block rerun on
+    its own at the step's inputs and cotangents: output and every input
+    gradient within 1e-2 (worst reading on the card 5.4e-4). The whole
+    step, where one-ulp differences grow in the batch-moment BNs: loss
+    rtol 2e-3, logits 0.1 relative RMS, every leaf within 0.6 of its norm
+    (worst reading 0.18 at this narrow width, scripts/
+    torch_step_agreement.py) and the null-gradient biases within 1e-2 of
+    the largest leaf norm; agg_conv.beta, rounding noise at 2 clouds, at
+    the block level only (chip_smoke.py phase 5)."""
+    from weaksuppointcloudseg_tpu_torch.losses.weaksup import masked_softmax_ce
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    cfg = dataclasses.replace(
+        configs.shapenet_config().model, num_classes=12, num_categories=4,
+        global_channels=128, category_embed_channels=8,
+        head_channels=(32, 32, 16), head_keep_prob=(None, None, None),
+        compute_dtype="bfloat16", knn_fast=True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 300, 3), generator=g) * 0.5
+    onehot = torch.eye(12)[torch.randint(0, 12, (2, 300), generator=g)]
+    mask = (torch.rand((2, 300), generator=g) < 0.3).float()
+    cat = torch.eye(4)[[0, 2]]
+    kernels = (edgeconv.knn_edge, conv_kmax.conv_minmax, conv_kmax.conv_nmax,
+               conv_kmax.conv_kmax_bwd, conv_kmax.conv_nmax_bwd,
+               scatter.scatter_bn_bwd)
+    outs, tape, blocks = [], None, None
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(cfg, seed=1).to(dev)
+        counts = [fn.launches for fn in kernels]
+        cuda = dev == "cuda"
+        with (replay.record() if cuda else replay.replay(tape)) as t, \
+                (replay.record_blocks() if cuda else contextlib.nullcontext()) as b:
+            logits = model(x.to(dev), cat.to(dev), training=True, bn_decay=0.5) \
+                if cuda else model.forward_fused(x, cat, training=True,
+                                                 bn_decay=0.5)
+        tape, blocks = tape or t, blocks or b
+        loss = masked_softmax_ce(logits, onehot.to(dev), mask.to(dev))
+        loss.backward()
+        if cuda:
+            # transform stage + 3 EdgeConv stages; 3 two-conv stages; 2
+            # N-max blocks; their backwards; 4 stage backward scatters
+            assert [fn.launches - c for fn, c in zip(kernels, counts)] == [
+                4, 3, 2, 3, 2, 4]
+        outs.append((float(loss.detach()), logits.detach().float().cpu(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_l, got_lg, got_g), (want_l, want_lg, want_g) = outs
+    assert len(blocks) == 6
+    for entry in blocks:
+        errs = replay.block_errors(entry)
+        assert max(errs.values()) <= 1e-2, (entry["block"].__name__, errs)
+    errs, null = replay.grad_errors(model, got_g, want_g)
+    assert abs(got_l - want_l) <= 2e-3 * abs(want_l)
+    assert (got_lg - want_lg).norm() <= 0.1 * want_lg.norm()
+    for name, e in errs.items():
+        if name != "agg_conv.beta":
+            assert e <= (1e-2 if name in null else 0.6), (name, e)
+
+
 def test_model_gate_on_cuda(gen):
     """bf16 + fused kNN runs the fused kernels (counters grow) and agrees
     with the same composition over the plain versions on the CPU; f32 +
@@ -268,8 +540,15 @@ def test_model_gate_on_cuda(gen):
     assert knn.knn.launches - before == 4
     agree = (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item()
     assert agree >= 0.99 and (got.cpu() - want).abs().max().item() <= 1e-3
-    with pytest.raises(NotImplementedError, match="B2-B6"):
-        model.cuda()(x, cat, training=True, bn_decay=0.5)
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+
+    full = configs.shapenet_config()
+    full = dataclasses.replace(full, model=cfg)
+    batch = {"data": x, "cat_onehot": cat, "seg_onehot": torch.zeros(
+        (2, 500, 50), device="cuda"), "mask": torch.ones((2, 500), device="cuda")}
+    with pytest.raises(NotImplementedError, match="B6"):
+        loss_fn(model.cuda(), batch, cfg=full, style="Full", bn_decay=0.5,
+                gate=1.0)
     unfused = DGCNNSeg(dataclasses.replace(cfg, use_fused_knn=False)).cuda()
     with pytest.raises(NotImplementedError, match="B14"):
         unfused(x, cat)

@@ -5,10 +5,11 @@ counterpart at the same relative path there, and the tests in
 ``tests/test_torch_*.py`` hold the two against each other on the CPU.
 
 Ported so far: the ShapeNet test path (eval forward in bf16 with the fused
-EdgeConv blocks, or in f32, then label propagation) and ShapeNet Full-style
-training at the default f32 precision, with five hand-written Hopper
-kernels (``ops/csrc/*.cu``). bf16 training, S3DIS and the other solvers are
-still to port (ROADMAP.md).
+EdgeConv blocks, or in f32, then label propagation), ShapeNet Full-style
+training at the default f32 precision, and ShapeNet Plain-style training
+in bf16 through the fused blocks, with ten hand-written Hopper kernels
+(``ops/csrc/*.cu``). The bf16 Full-style loss, S3DIS and the other solvers
+are still to port (ROADMAP.md).
 
 This package imports neither JAX nor the JAX package: the configs, the
 ShapeNet readers, the augmentation and label sampling, and the IoU metrics

@@ -39,8 +39,9 @@ def base_parser(*, train: bool) -> argparse.ArgumentParser:
     p.add_argument("--Precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="compute dtype (default: the preset's float32, "
-                        "kernel B12 on the card); bfloat16 + --FastKNN runs "
-                        "the fused eval kernels")
+                        "kernels B12/B13 on the card); bfloat16 runs the "
+                        "fused kernels (B1-B5 training, B1/B7/B8 eval; "
+                        "-sty Full in bfloat16 needs B6, not ported yet)")
     p.add_argument("--FastKNN", action="store_true",
                    help="packed-min top-k selection")
     p.add_argument("--StaticGraph", action="store_true",

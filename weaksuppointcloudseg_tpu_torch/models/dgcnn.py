@@ -10,14 +10,19 @@ Which path runs is decided by the compute dtype, ``use_fused_knn`` and
 where the tensors live, in place of the reference's
 ``jax.default_backend()`` gate (dgcnn.py:144-145):
 
-  CUDA, bf16, use_fused_knn, eval   -> forward_fused, kernels B1/B7/B8
-  CUDA, f32, use_fused_knn          -> forward_plain, kNN by kernel B12 and
-                                       the gather's backward by kernel B13
-  CPU, anything                     -> forward_plain over plain versions
-  CUDA, anything else               -> NotImplementedError naming the
-                                       kernels still to port (bf16
-                                       training: B2-B6; bf16 without
-                                       use_fused_knn: B14)
+  CUDA, bf16, use_fused_knn, eval     -> forward_fused, kernels B1/B7/B8
+  CUDA, bf16, use_fused_knn, training -> forward_fused, kernels B1-B5
+                                         (forward B1/B2/B5, backward
+                                         B3/B4/B5)
+  CUDA, f32, use_fused_knn            -> forward_plain, kNN by kernel B12
+                                         and the gather's backward by B13
+  CPU, anything                       -> forward_plain over plain versions
+  CUDA, anything else                 -> NotImplementedError naming the
+                                         kernels still to port (bf16
+                                         without use_fused_knn: B14)
+
+The Full-style loss of a bf16 fused model needs the fused smoothness
+loss (kernels B6), which is not ported: train/steps.py raises for it.
 
 Not ported here: static-graph mode and EdgeConv stages of three or more
 convs on the fused path (no preset has one). The reference's
@@ -100,8 +105,11 @@ class DGCNNSeg(nn.Module):
         win the max over points.
         """
         if x.device.type == "cuda":
-            if self._cuda_route(training) == "fused":
-                return self.forward_fused(x, cat_onehot, n_valid)
+            if self._cuda_route() == "fused":
+                return self.forward_fused(x, cat_onehot, n_valid,
+                                          training=training,
+                                          bn_decay=bn_decay,
+                                          generator=generator)
         elif x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         if n_valid is not None:
@@ -109,9 +117,10 @@ class DGCNNSeg(nn.Module):
         return self.forward_plain(x, cat_onehot, training=training,
                                   bn_decay=bn_decay, generator=generator)
 
-    def _cuda_route(self, training: bool) -> str:
-        """"fused" or "plain" on CUDA; raises for the configurations whose
-        kernels are not ported yet."""
+    def _cuda_route(self) -> str:
+        """"fused" or "plain" on CUDA, in training and at eval alike (the
+        reference's one fused_tpu gate, dgcnn.py:141-145); raises for the
+        configurations whose kernels are not ported yet."""
         cfg = self.cfg
         if self.compute_dtype == torch.bfloat16:
             if not cfg.use_fused_knn:
@@ -119,12 +128,6 @@ class DGCNNSeg(nn.Module):
                     "bfloat16 without use_fused_knn gathers neighbors with "
                     "kernel B14 (ops/gather_pallas.py::gather_rows_pallas), "
                     "which is not ported yet (ROADMAP)")
-            if training:
-                raise NotImplementedError(
-                    "bfloat16 training runs the fused blocks' training kernels "
-                    "B2-B6 (conv_kmax_pallas.py, scatter_pallas.py, "
-                    "edgeconv_pallas.py), which are not ported yet (ROADMAP); "
-                    "train in float32")
             return "fused"
         if not cfg.use_fused_knn:
             raise NotImplementedError(
@@ -170,15 +173,24 @@ class DGCNNSeg(nn.Module):
                           **kw)
 
     def forward_fused(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
-                      n_valid: Optional[int] = None) -> torch.Tensor:
-        """Composition over the fused blocks (reference fused_tpu branch):
-        on CUDA tensors each block launches its kernel, on CPU tensors it
-        takes the kernel's plain version."""
+                      n_valid: Optional[int] = None, *, training: bool = False,
+                      bn_decay=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Composition over the fused blocks (reference fused_tpu branch,
+        dgcnn.py:193-326): on CUDA tensors each block launches its kernels,
+        on CPU tensors it takes the kernels' plain versions. ``training``:
+        the blocks' training forms (batch moments, BN buffers updated in
+        place with ``bn_decay``) and the head's dropout from
+        ``generator``."""
         cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
+        if training and n_valid is not None:
+            raise ValueError("n_valid is an eval-only option")
+        kw = dict(eps=eps, training=training, decay=bn_decay)
         if cfg.use_transform_net:
             g = self._knn_input(x).to(dt).contiguous()
             transform = self.transform_net.forward_fused(
-                g, cfg.k, eps=eps, fast=cfg.knn_fast, n_valid=n_valid)
+                g, cfg.k, fast=cfg.knn_fast, n_valid=n_valid, **kw)
             x = self._apply_transform(x, transform)
         feat = x.to(dt).contiguous()
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
@@ -187,13 +199,13 @@ class DGCNNSeg(nn.Module):
             src = graph_feat if s_i == 0 else outs[-1]
             f_in = feat if s_i == 0 else outs[-1]
             convs = self._convs(widths, conv_i)
-            kw = dict(eps=eps, fast=cfg.knn_fast, n_valid=n_valid)
+            skw = dict(fast=cfg.knn_fast, n_valid=n_valid, **kw)
             if len(widths) == 2:
                 out = layers.apply_edge_conv_stage_fused(
-                    convs[0], convs[1], f_in, src, cfg.k, **kw)
+                    convs[0], convs[1], f_in, src, cfg.k, **skw)
             elif len(widths) == 1:
                 out = layers.apply_edge_conv_stage1_fused(
-                    convs[0], f_in, src, cfg.k, **kw)
+                    convs[0], f_in, src, cfg.k, **skw)
             else:
                 raise NotImplementedError(
                     "fused EdgeConv stages of 3+ convs (B16) are not ported")
@@ -201,8 +213,9 @@ class DGCNNSeg(nn.Module):
             conv_i += len(widths)
         concat = torch.cat(outs, dim=-1)
         global_feat = layers.apply_conv_bn_relu_nmax(
-            self.agg_conv, concat, eps=eps, n_valid=n_valid)
-        return self._head(global_feat, concat, cat_onehot, eps=eps)
+            self.agg_conv, concat, n_valid=n_valid, **kw)
+        return self._head(global_feat, concat, cat_onehot, generator=generator,
+                          **kw)
 
     @staticmethod
     def _apply_transform(x, transform):

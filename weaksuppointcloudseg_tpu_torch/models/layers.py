@@ -1,5 +1,5 @@
 """Layers: shared-MLP conv, batch norm, EdgeConv first conv, dropout, and
-the fused eval EdgeConv blocks. Counterpart of
+the fused EdgeConv blocks. Counterpart of
 weaksuppointcloudseg_tpu/models/layers.py.
 
 Parameters keep the JAX package's names and layouts (``w`` [in, out],
@@ -12,11 +12,15 @@ rounded; BN is computed in f32 from the rounded value, then rounded.
 ``torch.matmul`` on bf16 tensors would round before the bias, so every
 product here runs on f32 upcasts of the (exact) bf16 values.
 
-Training runs the plain composition: batch-moment BN, the first EdgeConv
-conv as an ``autograd.Function`` with the reference's factored backward,
-and dropout. The fused blocks are eval only; their training kernels (B2-B6)
-are still to port (ROADMAP queue A). BN state lives in each conv's
-``mean``/``var`` buffers; a training forward updates them in place.
+The plain composition trains and evaluates: batch-moment BN, the first
+EdgeConv conv as an ``autograd.Function`` with the reference's factored
+backward, and dropout. The fused blocks (bf16) evaluate over kernels B1,
+B7, B8 and train as ``autograd.Function``s over B1-B5 (the reference's
+``custom_vjp``s ``_edge_conv_stage_train``, ``_edge_conv_stage1_train`` and
+``_conv_bn_nmax_train``). BN state lives in each conv's ``mean``/``var``
+buffers; a training forward updates them in place. The reference's
+``axis_name`` (BN moments summed across data-parallel replicas) is absent:
+data parallelism is not ported yet (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -27,8 +31,16 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from weaksuppointcloudseg_tpu_torch.ops.conv_kmax import conv_zmax, conv_znmax
+from weaksuppointcloudseg_tpu_torch.ops.conv_kmax import (
+    conv_kmax_bwd,
+    conv_minmax,
+    conv_nmax,
+    conv_nmax_bwd,
+    conv_zmax,
+    conv_znmax,
+)
 from weaksuppointcloudseg_tpu_torch.ops.edgeconv import knn_edge
+from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_bn_bwd
 
 BN_EPS = 1e-3
 
@@ -66,9 +78,7 @@ def batch_norm(y: torch.Tensor, p: Conv, eps: float, *, training: bool = False,
         axes = tuple(range(y.ndim - 1))
         mean = y32.mean(dim=axes)
         var = torch.clamp_min(y32.square().mean(dim=axes) - mean.square(), 0.0)
-        with torch.no_grad():
-            p.mean.copy_(p.mean * decay + mean * (1.0 - decay))
-            p.var.copy_(p.var * decay + var * (1.0 - decay))
+        _update_bn(p, mean, var, decay)
     else:
         mean, var = p.mean, p.var
     inv = torch.rsqrt(var + eps) * p.gamma
@@ -172,29 +182,224 @@ def bn_affine(p: Conv, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     return s, p.beta - p.mean * s
 
 
-def minmax_select(ymax, ymin, s):
-    """The k-extremum that realizes ``max_j (s*y_j + t)`` per channel."""
-    return torch.where(s >= 0, ymax, ymin)
+def minmax_select(ymax, amax, ymin, amin, s):
+    """The k-extremum (and its slot or row) that realizes
+    ``max (s*y + t)`` per channel: the max where s >= 0, else the min."""
+    pos = s >= 0
+    return torch.where(pos, ymax, ymin), torch.where(pos, amax, amin)
 
 
-def uv_factor(p: Conv, f: torch.Tensor):
+def uv_factor(w1: torch.Tensor, b1: torch.Tensor, f: torch.Tensor):
     """First-conv factorization ``u = f (W_top - W_bot) + b``,
     ``v = f W_bot``, each rounded to f's dtype (the bias is added first)."""
     c = f.shape[-1]
-    w = p.w.to(f.dtype)
+    w = w1.to(f.dtype)
     w_top, w_bot = w[:c], w[c:]
-    u = (torch.matmul(f.float(), (w_top - w_bot).float()) + p.b).to(f.dtype)
+    u = (torch.matmul(f.float(), (w_top - w_bot).float()) + b1).to(f.dtype)
     v = torch.matmul(f.float(), w_bot.float()).to(f.dtype)
     return u.contiguous(), v.contiguous()
+
+
+def _uv_grads(w1, f, du, dv):
+    """(df, dw1, db1) through the u/v factorization from the f32 cotangents
+    du (of u) and dv (of v), as the reference's ``_uv_grads``
+    (layers.py:923-940): the cotangents and weights in f's dtype, products
+    in f32."""
+    c = f.shape[-1]
+    w = w1.to(f.dtype)
+    w_top, w_bot = w[:c], w[c:]
+    du_c = du.to(f.dtype).float()
+    dv_c = dv.to(f.dtype).float()
+    df = (torch.matmul(du_c, (w_top - w_bot).float().t())
+          + torch.matmul(dv_c, w_bot.float().t())).to(f.dtype)
+    dw_a = torch.einsum("bnc,bno->co", f.float(), du_c)
+    dw_b = torch.einsum("bnc,bno->co", f.float(), dv_c)
+    return df, torch.cat([dw_a, dw_b - dw_a], dim=0), du.sum(dim=(0, 1))
+
+
+def _stage_consts(mom, r: int, gamma, beta, eps: float):
+    """Batch BN from in-kernel moments (layers.py:600-605): (mean, var, s,
+    t, inv) with the biased variance clamped at 0 and ``z = s*y + t``."""
+    mean = mom[0] / r
+    var = torch.clamp_min(mom[1] / r - mean.square(), 0.0)
+    inv = torch.rsqrt(var + eps)
+    s = inv * gamma
+    return mean, var, s, beta - mean * s, inv
+
+
+def _bn_bwd_from_extrema(dout, ysel, mean, inv, gamma, beta, r: int):
+    """BN backward evaluated on the selected extrema (layers.py:453-486):
+    with dz supported on the selected positions only, the BN backward is
+    ``q * 1[selected] + A + Bv * y``. Returns (q, A, Bv, a1, a2, db) with
+    a1 = dbeta, a2 = dgamma and db = sum(dy), the conv bias's gradient."""
+    s = inv * gamma
+    ysel32 = ysel.float()
+    z = ysel32 * s + (beta - mean * s)
+    dz = dout * (z > 0)
+    xhat = (ysel32 - mean) * inv
+    axes = tuple(range(dz.ndim - 1))
+    a1 = dz.sum(dim=axes)
+    a2 = (dz * xhat).sum(dim=axes)
+    q = s * dz
+    big_a = (-s * a1 + s * inv * a2 * mean) / r
+    big_b = -s * inv * a2 / r
+    db = q.sum(dim=axes) + r * big_a + big_b * (r * mean)
+    return q, big_a, big_b, a1, a2, db
+
+
+def _update_bn(p: Conv, mean, var, decay) -> None:
+    """The population update pop*decay + batch*(1-decay), in place."""
+    with torch.no_grad():
+        p.mean.copy_(p.mean * decay + mean * (1.0 - decay))
+        p.var.copy_(p.var * decay + var * (1.0 - decay))
+
+
+class _EdgeConvStageTrain(torch.autograd.Function):
+    """A whole two-conv EdgeConv stage in training (layers.py:608-762):
+    kNN + conv1 (B1 emits the raw y1 and BN1's moments), BN1 + relu +
+    conv2 folded into B2 (k-extrema + BN2's moments), BN2 + relu + k-max
+    on the selected extrema. Only y1 reaches memory.
+
+    Backward: BN2's backward from the extrema, then one pass of B3 over y1
+    (h1 recomputed; dz1, conv2's Gram sums and BN1's reductions), and B4
+    folds BN1's backward into the scatter of the first conv's factored
+    cotangents. Gradients as the reference returns them: dgamma = a2,
+    dbeta = a1; ``g_src`` gets none.
+
+    Outputs (out [B,N,C2], mean1, var1, mean2, var2); the moments feed the
+    BN buffer updates only."""
+
+    @staticmethod
+    def forward(ctx, f, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, g_src,
+                k, eps, fast):
+        u, v = uv_factor(w1, b1, f)
+        idx, y1, mom1 = knn_edge(g_src.detach().contiguous(), v, u, k,
+                                 fast=fast)
+        r = y1.shape[0] * y1.shape[1] * y1.shape[2]
+        mean1, var1, s1, t1, inv1 = _stage_consts(mom1, r, gamma1, beta1, eps)
+        ymax, amax, ymin, amin, mom2 = conv_minmax(
+            y1, w2.to(f.dtype), b2, s1, t1)
+        mean2, var2, s2, t2, inv2 = _stage_consts(mom2, r, gamma2, beta2, eps)
+        ysel, asel = minmax_select(ymax, amax, ymin, amin, s2)
+        out = torch.relu(ysel.float() * s2 + t2).to(f.dtype)
+        ctx.save_for_backward(idx, y1, ysel, asel, mean1, inv1, mean2, inv2,
+                              w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, f)
+        ctx.mark_non_differentiable(mean1, var1, mean2, var2)
+        return out, mean1, var1, mean2, var2
+
+    @staticmethod
+    def backward(ctx, dout, *_):
+        (idx, y1, ysel, asel, mean1, inv1, mean2, inv2, w1, b1, gamma1,
+         beta1, w2, b2, gamma2, beta2, f) = ctx.saved_tensors
+        b_, n_, k_, _ = y1.shape
+        r = b_ * n_ * k_
+        q, big_a, big_b, a1, a2, db2 = _bn_bwd_from_extrema(
+            dout.float(), ysel, mean2, inv2, gamma2, beta2, r)
+        w232 = w2.float()
+        m = (w232 * big_b[None, :]) @ w232.t()
+        row0 = (big_a + b2 * big_b) @ w232.t()
+        s1 = inv1 * gamma1
+        t1 = beta1 - mean1 * s1
+        dz1, t_sp, gram, s1sum, ab = conv_kmax_bwd(
+            y1, q.contiguous(), asel.contiguous(),
+            w232.t().to(y1.dtype).contiguous(), m.to(y1.dtype), row0, s1, t1,
+            mean1, inv1)
+        dw2 = (t_sp + s1sum[:, None] * big_a[None, :]
+               + (gram @ w232 + s1sum[:, None] * b2[None, :]) * big_b[None, :])
+        a1p, a2p = ab[0], ab[1]
+        alpha1 = s1 * (-a1p / r + (a2p / r) * inv1 * mean1)
+        beta1v = -s1 * (a2p / r) * inv1
+        dv, du = scatter_bn_bwd(idx, y1, dz1, s1, alpha1, beta1v, n_)
+        df, dw1, db1 = _uv_grads(w1, f, du, dv)
+        return (df if ctx.needs_input_grad[0] else None, dw1, db1, a2p, a1p,
+                dw2, db2, a2, a1, None, None, None, None)
+
+
+class _EdgeConvStage1Train(torch.autograd.Function):
+    """The single-conv EdgeConv stage in training (layers.py:943-1018): B1
+    emits y1, BN's moments and the k-extrema of y1 with their slots;
+    BN + relu + k-max act on the selected extrema. Backward: BN's backward
+    from the extrema, then B4 in its sparse mode (the routed gradient at
+    the selected slot plus BN's dense correction) scatters the factored
+    cotangents. Outputs (out, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, f, w1, b1, gamma1, beta1, g_src, k, eps, fast):
+        u, v = uv_factor(w1, b1, f)
+        idx, y1, mom, ymax, amax, ymin, amin = knn_edge(
+            g_src.detach().contiguous(), v, u, k, fast=fast, with_minmax=True)
+        r = y1.shape[0] * y1.shape[1] * y1.shape[2]
+        mean, var, s, t, inv = _stage_consts(mom, r, gamma1, beta1, eps)
+        ysel, asel = minmax_select(ymax, amax, ymin, amin, s)
+        out = torch.relu(ysel.float() * s + t).to(f.dtype)
+        ctx.save_for_backward(idx, y1, ysel, asel, mean, inv, w1, gamma1,
+                              beta1, f)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, *_):
+        idx, y1, ysel, asel, mean, inv, w1, gamma1, beta1, f = ctx.saved_tensors
+        b_, n_, k_, _ = y1.shape
+        q, alpha, beta_v, a1, a2, _ = _bn_bwd_from_extrema(
+            dout.float(), ysel, mean, inv, gamma1, beta1, b_ * n_ * k_)
+        # sv (the dz scale of the dense mode) is unused: q carries it
+        dv, du = scatter_bn_bwd(idx, y1, (q.contiguous(), asel.contiguous()),
+                                None, alpha, beta_v, n_)
+        df, dw1, db1 = _uv_grads(w1, f, du, dv)
+        return (df if ctx.needs_input_grad[0] else None, dw1, db1, a2, a1,
+                None, None, None, None)
+
+
+class _ConvBnNmaxTrain(torch.autograd.Function):
+    """Global-aggregation conv + BN + relu + max over N in training
+    (layers.py:1161-1234): B5 reduces y = bf16(h @ W + b) to its extrema
+    over the points with their rows and BN's moments; B5's backward
+    recomputes y and forms dh, dW and db from the routed gradient and BN's
+    dense correction. Outputs (out [B, C2], mean, var)."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, gamma, beta, eps):
+        ymax, amax, ymin, amin, mom = conv_nmax(h, w.to(h.dtype), b)
+        r = h.shape[0] * h.shape[1]
+        mean, var, s, t, inv = _stage_consts(mom, r, gamma, beta, eps)
+        ysel, asel = minmax_select(ymax, amax, ymin, amin, s)
+        out = torch.relu(ysel * s + t).to(h.dtype)
+        ctx.save_for_backward(h, ysel, asel, mean, inv, w, b, gamma, beta)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, *_):
+        h, ysel, asel, mean, inv, w, b, gamma, beta = ctx.saved_tensors
+        # db comes from the kernel (the numeric sum of dy)
+        q, alpha, beta_v, a1, a2, _ = _bn_bwd_from_extrema(
+            dout.float(), ysel, mean, inv, gamma, beta, h.shape[0] * h.shape[1])
+        dh, dw, db = conv_nmax_bwd(h, q.contiguous(), asel.contiguous(),
+                                   w.to(h.dtype), b, alpha, beta_v)
+        return dh, dw, db, a2, a1, None
 
 
 def apply_edge_conv_stage_fused(p1: Conv, p2: Conv, f: torch.Tensor,
                                 g_src: torch.Tensor, k: int, *,
                                 eps: float = BN_EPS, fast: bool = False,
-                                n_valid: Optional[int] = None) -> torch.Tensor:
-    """Whole two-conv EdgeConv stage at eval: kNN + conv1 (B1) and
-    BN1 + relu + conv2 + BN2 + relu + k-max (B7). f, g_src: bf16."""
-    u, v = uv_factor(p1, f)
+                                n_valid: Optional[int] = None,
+                                training: bool = False,
+                                decay=None) -> torch.Tensor:
+    """Whole two-conv EdgeConv stage (layers.py:817-907). Eval: kNN +
+    conv1 (B1) and BN1 + relu + conv2 + BN2 + relu + k-max (B7). Training:
+    :class:`_EdgeConvStageTrain` (B1, B2; backward B3, B4), with both BN
+    layers' population stats updated in place. f, g_src: bf16."""
+    if training:
+        if n_valid is not None:
+            raise ValueError("n_valid is an eval-only option")
+        out, mean1, var1, mean2, var2 = _EdgeConvStageTrain.apply(
+            f, p1.w, p1.b, p1.gamma, p1.beta, p2.w, p2.b, p2.gamma, p2.beta,
+            g_src, k, eps, fast)
+        _update_bn(p1, mean1, var1, decay)
+        _update_bn(p2, mean2, var2, decay)
+        return out
+    u, v = uv_factor(p1.w, p1.b, f)
     _, y1, _ = knn_edge(g_src.contiguous(), v, u, k, fast=fast,
                         n_valid=n_valid)
     s1, t1 = bn_affine(p1, eps)
@@ -205,22 +410,41 @@ def apply_edge_conv_stage_fused(p1: Conv, p2: Conv, f: torch.Tensor,
 def apply_edge_conv_stage1_fused(p: Conv, f: torch.Tensor,
                                  g_src: torch.Tensor, k: int, *,
                                  eps: float = BN_EPS, fast: bool = False,
-                                 n_valid: Optional[int] = None) -> torch.Tensor:
-    """Single-conv EdgeConv stage at eval: B1 emits the per-channel
-    k-extrema of the conv output; BN's sign picks max or min."""
-    u, v = uv_factor(p, f)
-    _, _, _, ymax, _, ymin, _ = knn_edge(
+                                 n_valid: Optional[int] = None,
+                                 training: bool = False,
+                                 decay=None) -> torch.Tensor:
+    """Single-conv EdgeConv stage (layers.py:1069-1123): B1 emits the
+    per-channel k-extrema of the conv output; BN's sign picks max or min.
+    Training: :class:`_EdgeConvStage1Train` (backward B4, sparse mode)."""
+    if training:
+        if n_valid is not None:
+            raise ValueError("n_valid is an eval-only option")
+        out, mean, var = _EdgeConvStage1Train.apply(
+            f, p.w, p.b, p.gamma, p.beta, g_src, k, eps, fast)
+        _update_bn(p, mean, var, decay)
+        return out
+    u, v = uv_factor(p.w, p.b, f)
+    _, _, _, ymax, amax, ymin, amin = knn_edge(
         g_src.contiguous(), v, u, k, fast=fast, with_minmax=True,
         n_valid=n_valid)
     s, t = bn_affine(p, eps)
-    z = minmax_select(ymax, ymin, s).float() * s + t
+    z = minmax_select(ymax, amax, ymin, amin, s)[0].float() * s + t
     return torch.relu(z).to(f.dtype)
 
 
 def apply_conv_bn_relu_nmax(p: Conv, h: torch.Tensor, *, eps: float = BN_EPS,
-                            n_valid: Optional[int] = None) -> torch.Tensor:
-    """Global-aggregation conv + BN + relu + max over N at eval (B8).
+                            n_valid: Optional[int] = None,
+                            training: bool = False, decay=None) -> torch.Tensor:
+    """Global-aggregation conv + BN + relu + max over N (layers.py:
+    1237-1273): B8 at eval, :class:`_ConvBnNmaxTrain` (B5) in training.
     h: [B, N, C1] bf16 -> [B, C2] in h's dtype."""
+    if training:
+        if n_valid is not None:
+            raise ValueError("n_valid is an eval-only option")
+        out, mean, var = _ConvBnNmaxTrain.apply(h.contiguous(), p.w, p.b,
+                                                p.gamma, p.beta, eps)
+        _update_bn(p, mean, var, decay)
+        return out
     s, t = bn_affine(p, eps)
     out = conv_znmax(h.contiguous(), p.w.to(h.dtype), p.b, s, t,
                      n_valid=n_valid)

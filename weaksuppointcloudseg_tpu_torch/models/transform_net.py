@@ -3,7 +3,7 @@
 Counterpart of weaksuppointcloudseg_tpu/models/transform_net.py: edge
 features -> conv 64 -> conv 128 -> max over k -> conv 1024 -> max over N ->
 fc 512 -> fc 256 -> linear to K*K (zero weights, identity bias at init).
-The plain path trains and evaluates; the fused path is eval only.
+Both the plain and the fused path train and evaluate.
 """
 
 from __future__ import annotations
@@ -57,13 +57,17 @@ class TransformNet(nn.Module):
         return self._head(torch.amax(net, dim=1), **kw)
 
     def forward_fused(self, g: torch.Tensor, k: int, *, eps: float,
-                      fast: bool, n_valid: Optional[int] = None) -> torch.Tensor:
+                      fast: bool, n_valid: Optional[int] = None,
+                      training: bool = False, decay=None) -> torch.Tensor:
         """Fused path over the kernels: tconv1+tconv2+k-max as one
-        EdgeConv stage (B1 + B7) on the bf16 coordinates ``g``, then
-        tconv3 + max over N (B8) (transform_net.py:65-97)."""
+        EdgeConv stage on the bf16 coordinates ``g`` (B1 + B7 at eval; B1 +
+        B2, backward B3 + B4, in training), then tconv3 + max over N (B8;
+        B5 in training) (transform_net.py:65-97). ``g`` is data: no
+        gradient reaches it."""
+        kw = dict(eps=eps, training=training, decay=decay)
         net = layers.apply_edge_conv_stage_fused(
-            self.tconv1, self.tconv2, g, g, k, eps=eps, fast=fast,
-            n_valid=n_valid)
-        net = layers.apply_conv_bn_relu_nmax(self.tconv3, net, eps=eps,
-                                             n_valid=n_valid)
-        return self._head(net, eps=eps)
+            self.tconv1, self.tconv2, g, g, k, fast=fast, n_valid=n_valid,
+            **kw)
+        net = layers.apply_conv_bn_relu_nmax(self.tconv3, net,
+                                             n_valid=n_valid, **kw)
+        return self._head(net, **kw)

@@ -38,6 +38,11 @@ SIGNATURES = {
     "conv_znmax_launch": [P, P, P, P, P, I, I, I, I, I, I, P, P, P],
     "knn_launch": [P, I, I, I, I, I, I, P, P, P, P],
     "scatter_add_launch": [P, P, I, I, I, I, I, P, P],
+    "conv_minmax_launch": [P] * 5 + [I] * 3 + [P] * 6,
+    "conv_nmax_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P, P, P],
+    "conv_kmax_bwd_launch": [P] * 10 + [I] * 4 + [P] * 5,
+    "conv_nmax_bwd_launch": [P] * 7 + [I] * 5 + [P] * 5,
+    "scatter_bn_bwd_launch": [P] * 8 + [I] * 5 + [P] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None

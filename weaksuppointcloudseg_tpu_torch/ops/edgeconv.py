@@ -26,10 +26,21 @@ def knn_edge_ref(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
                  with_values: bool = False,
                  n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of :func:`knn_edge` (same contract)."""
-    b, n, _ = g.shape
+    n = g.shape[1]
     nv = n if n_valid is None else min(n_valid, n)
     idx, sqd = select_ref(distances(g), k, fast=fast, n_valid=nv)
-    bi = torch.arange(b, device=g.device)[:, None, None]
+    out = edge_outputs_ref(idx, v, u, with_minmax=with_minmax, n_valid=nv)
+    return out + (sqd,) if with_values else out
+
+
+def edge_outputs_ref(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor, *,
+                     with_minmax: bool = False,
+                     n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """:func:`knn_edge`'s outputs at the given neighbour indices ``idx``
+    [B, N, k]: (idx, y1, mom [, ymax, amax, ymin, amin])."""
+    b, n = idx.shape[:2]
+    nv = n if n_valid is None else min(n_valid, n)
+    bi = torch.arange(b, device=idx.device)[:, None, None]
     y = (v.float()[bi, idx.long()] + u.float()[:, :, None, :]).to(v.dtype)
     if nv < n:
         y[:, nv:] = 0  # rows past n_valid hold zeros, as the reference's do
@@ -43,8 +54,6 @@ def knn_edge_ref(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
         amin = torch.argmin(y32, dim=2, keepdim=True)
         out += (torch.gather(y, 2, amax)[:, :, 0], amax[:, :, 0].int(),
                 torch.gather(y, 2, amin)[:, :, 0], amin[:, :, 0].int())
-    if with_values:
-        out += (sqd,)
     return out
 
 

@@ -1,15 +1,20 @@
-"""Kernel B13: neighbour scatter-add (``ops/csrc/scatter_add.cu``).
+"""Neighbour scatter kernels, counterparts of weaksuppointcloudseg_tpu/ops/
+scatter_pallas.py:
 
-Counterpart of weaksuppointcloudseg_tpu/ops/scatter_pallas.py::
-scatter_add_pallas: ``out[b, idx[b, p, j], :] += g[b, p, j, :]``, the
-backward of ``ops/neighbors.py::gather_neighbors``.
+- B13 ``scatter_add`` (``ops/csrc/scatter_add.cu``, scatter_add_pallas):
+  ``out[b, idx[b, p, j], :] += g[b, p, j, :]``, the backward of
+  ``ops/neighbors.py::gather_neighbors``;
+- B4 ``scatter_bn_bwd`` (``ops/csrc/scatter_bn.cu``,
+  scatter_bn_bwd_pallas): the same scatter of a batch-norm cotangent
+  assembled on the fly from the saved pre-BN activations, the backward of
+  the fused EdgeConv stages' first conv (models/layers.py).
 
-``scatter_add`` launches the CUDA kernel on CUDA tensors and takes the
-plain version ``scatter_add_ref`` (``index_add_``) on CPU tensors; any
-other device raises. The kernel adds with f32 atomics, so the k
-contributions to a row sum in an order that changes from run to run (the
-Pallas kernel sums in one-hot-matmul order): results agree with the plain
-version to f32 rounding of the sums, not bitwise.
+Each wrapper launches its CUDA kernel on CUDA tensors and takes its plain
+version (``*_ref``) on CPU tensors; any other device raises. The kernels
+add with f32 atomics, so the k contributions to a row sum in an order that
+changes from run to run (the Pallas kernels sum in one-hot-matmul order):
+results agree with the plain versions to f32 rounding of the sums, not
+bitwise.
 """
 
 from __future__ import annotations
@@ -60,4 +65,72 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def scatter_bn_bwd_ref(idx, y, big, sv, alpha, beta, n: int):
+    """Plain PyTorch version of :func:`scatter_bn_bwd` (same contract)."""
+    k = idx.shape[2]
+    if isinstance(big, tuple):
+        q, asel = big
+        onek = asel[:, :, None, :] == torch.arange(k, device=y.device)[:, None]
+        first = torch.where(onek, q[:, :, None, :], 0.0)
+    else:
+        first = sv * big.float()
+    dy = (first + alpha) + beta * y.float()
+    # dv takes the cotangent rounded to y's dtype, as the kernel's bf16
+    # one-hot-matmul operands in the reference
+    return scatter_add_ref(idx, dy.to(y.dtype), n), dy.sum(dim=2)
+
+
+def scatter_bn_bwd(idx: torch.Tensor, y: torch.Tensor, big, sv: torch.Tensor,
+                   alpha: torch.Tensor, beta: torch.Tensor, n: int):
+    """(dv, du) of ``dy = first + alpha + beta * y`` without a dy tensor.
+
+    Args:
+      idx: int32 [B, P, k] target rows, each in [0, n).
+      y: bf16 [B, P, k, C] saved pre-BN activations.
+      big: dense mode dz bf16 [B, P, k, C] (first = sv * dz), or sparse
+        mode (q f32 [B, P, C], asel int32 [B, P, C]) (first = q at the
+        slot asel, 0 elsewhere).
+      sv, alpha, beta: [C] f32 (sv is ignored in sparse mode).
+      n: rows of dv.
+
+    Returns:
+      (dv f32 [B, n, C] = scatter-add of bf16(dy) into the rows idx,
+       du f32 [B, P, C] = sum over the slots of the f32 dy).
+    """
+    if y.device.type == "cpu":
+        return scatter_bn_bwd_ref(idx, y, big, sv, alpha, beta, n)
+    if y.device.type != "cuda":
+        raise ValueError(f"scatter_bn_bwd: unsupported device {y.device}")
+    b, p, k = idx.shape
+    c = y.shape[-1]
+    dev = y.device
+    _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
+    _build.check_operand(y, "y", torch.bfloat16, dev, (b, p, k, c))
+    sparse = isinstance(big, tuple)
+    if sparse:
+        q, asel = big
+        _build.check_operand(q, "q", torch.float32, dev, (b, p, c))
+        _build.check_operand(asel, "asel", torch.int32, dev, (b, p, c))
+        dz = sv = None
+    else:
+        dz, q, asel = big, None, None
+        _build.check_operand(dz, "dz", torch.bfloat16, dev, (b, p, k, c))
+        _build.check_operand(sv, "sv", torch.float32, dev, (c,))
+    for t, name in ((alpha, "alpha"), (beta, "beta")):
+        _build.check_operand(t, name, torch.float32, dev, (c,))
+    dv = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    du = torch.empty((b, p, c), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.scatter_bn_bwd_launch(
+            idx.data_ptr(), y.data_ptr(),
+            *map(_build.ptr, (dz, q, asel, sv)), alpha.data_ptr(),
+            beta.data_ptr(), b, p, k, n, c, dv.data_ptr(), du.data_ptr(),
+            _build.stream_ptr(dev))
+    _build.check(code, "scatter_bn_bwd")
+    scatter_bn_bwd.launches += 1
+    return dv, du
+
+
 scatter_add.launches = 0  # kernel launches since the last reset
+scatter_bn_bwd.launches = 0

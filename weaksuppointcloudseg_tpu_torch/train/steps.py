@@ -32,12 +32,34 @@ from weaksuppointcloudseg_tpu_torch.ops.schedules import (
 from weaksuppointcloudseg_tpu_torch.train.state import Adam
 
 
+def check_loss_route(cfg: ExperimentConfig, style: str,
+                     device: torch.device) -> None:
+    """Raise where the training loss needs kernels not ported yet.
+
+    A bf16 model with ``use_fused_knn`` runs the fused blocks on the card,
+    and the reference pairs them with the fused smoothness loss over the
+    weighted gather and its scatter (kernels B6, losses/weaksup.py:152-185,
+    steps.py:73-85). Running the f32 smoothness loss (B12) under that model
+    instead would silently train something the reference never does, so a
+    Full-style loss there raises; Plain style needs no B6."""
+    m = cfg.model
+    if (style == "Full" and torch.device(device).type == "cuda"
+            and m.compute_dtype == "bfloat16" and m.use_fused_knn):
+        raise NotImplementedError(
+            "the Full-style loss of a bfloat16 fused model needs the fused "
+            "smoothness loss over kernels B6 (edgeconv_pallas.py::"
+            "_wgather_pre_impl, scatter_pallas.py::"
+            "scatter_add_weighted_pallas), which are not ported yet "
+            "(ROADMAP); train -sty Plain, or in float32")
+
+
 def loss_fn(model: DGCNNSeg, batch: Dict[str, torch.Tensor], *,
             cfg: ExperimentConfig, style: str, bn_decay, gate,
             generator: Optional[torch.Generator] = None):
     """Training forward + loss (steps.py:88-124). Returns (total,
     components incl. ``total``, logits); the model's BN buffers hold the
     new population stats afterwards."""
+    check_loss_route(cfg, style, batch["data"].device)
     logits = model(batch["data"], batch.get("cat_onehot"), training=True,
                    bn_decay=bn_decay, generator=generator)
     if style == "Full":
