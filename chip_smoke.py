@@ -25,7 +25,20 @@ Phases:
      fixed batch, one fused step CUDA against the CPU plain versions at 2
      clouds with the card's kNN indices and BN moments replayed on the CPU
      (``utils/replay.py``), ``shapenet_plain_train_throughput``, peak
-     memory, the device time by kernel and the device's idle share.
+     memory, the device time by kernel and the device's idle share;
+  6. bf16 Full-style ShapeNet training through ``cli.train_shapenet`` at
+     bench.py's shape (32 unique x 2 Siamese x 2048 points, gate on) on
+     phase 5's split: launch counts of B1-B5, B6 (gather and scatter; B9
+     must not run: the smoothness loss reuses the transform stage's
+     graph) and B7/B8 during one epoch + evaluate, finite losses,
+     ``shapenet_full_train_throughput``, peak memory, device time by kernel,
+     idle share, and the smoothness-loss block's kernel route against its
+     plain route on the CPU at one step's inputs;
+  7. bf16 Full-style S3DIS training through ``cli.train_s3dis`` (14 unique
+     x 2 x 4096 points) on an S3DIS-format block split the script writes
+     (Area_5 for validation): launch counts of B1-B5, B9, B6's scatter and
+     B7/B8, finite losses and mIoU, ``s3dis_full_train_throughput``, peak
+     memory, device time by kernel, idle share.
 
 Prints a JSON line of per-kernel results, then the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
@@ -35,6 +48,7 @@ phase fails. Never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -700,6 +714,169 @@ def check_conv_nmax(gen, report):
         "weaksuppointcloudseg_tpu/ops/conv_kmax_pallas.py:847", errs[1], *bwd))
 
 
+SB, SN, SK = 64, 2048, 10  # the ShapeNet Full smoothness loss (32 x 2 clouds)
+RB, RN = 28, 4096  # the S3DIS Full-style batch (14 unique blocks x 2)
+
+
+def smooth_features(gen, b, n, n_cls):
+    """f = bf16([P, |P|^2]) of softmax probabilities P [b, n, n_cls], the
+    smoothness loss's gathered features."""
+    import torch
+
+    prob = torch.softmax(torch.randn((b, n, n_cls), generator=gen,
+                                     device="cuda") * 2, -1)
+    q = prob.square().sum(-1, keepdim=True)
+    return torch.cat([prob, q], -1).to(torch.bfloat16)
+
+
+def s3dis_blocks(gen, b, n, dup_every=4):
+    """xyzrgb of S3DIS-like blocks [b, n, 6] f32: xy in a 1 m block around
+    0, z up to 3 m, rgb in [0, 1]; every ``dup_every``-th block holds 3/4 of
+    n distinct points and repeats the rest, as the block sampler pads short
+    blocks, so exact distances tie at 0."""
+    import torch
+
+    g = torch.rand((b, n, 6), generator=gen, device="cuda")
+    g[..., :2] -= 0.5
+    g[..., 2] *= 3.0
+    m = 3 * n // 4
+    rep = torch.randint(0, m, (n - m,), generator=gen, device="cuda")
+    g[::dup_every, m:] = g[::dup_every][:, rep]
+    return g
+
+
+def check_wgather_pre(gen, report):
+    """B6's gather against wgather_pre_ref at the ShapeNet smoothness
+    shape (B=64, N=2048, k=10, 50 classes + |P|^2), on a kNN graph of
+    random points with w = exp(-d / 0.1). Tolerance: the k products summed
+    in another order (and fused multiply-adds), 1e-5 of sum_j |w_j| |f_j|
+    (ROADMAP C4)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import knn, wgather
+
+    x = torch.randn((SB, SN, 3), generator=gen, device="cuda") * 0.3
+    idx, sqd = knn.knn(x, SK, fast=True, with_values=True)
+    w = torch.exp(-sqd.clamp_min(0.0) / 0.1)
+    f = smooth_features(gen, SB, SN, 50)
+    got = wgather.wgather_pre(idx, w, f)
+    want = wgather.wgather_pre_ref(idx, w, f)
+    mags = wgather.wgather_pre_ref(idx, w, f.abs())
+    torch.cuda.synchronize()
+    err = sum_err(got, want, mags)
+    require(err <= 1e-5, f"wgather_pre: {err} of the magnitudes")
+    ms = timed_ms(lambda: wgather.wgather_pre(idx, w, f))
+    plain_ms = timed_ms(lambda: wgather.wgather_pre_ref(idx, w, f))
+    bnd = bound(2.0 * idx.numel() * f.shape[-1], "f32", nbytes(idx, w, f, got))
+    print(f"  wgather_pre (B6) B={SB} N={SN} k={SK} Cf=51: {err:.2e} of the "
+          f"magnitudes; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    report.append(kernel_row(
+        "wgather_pre (B6)", "weaksuppointcloudseg_tpu_torch/ops/csrc/wgather.cu",
+        "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:1139",
+        (got - want).abs().max().item(), ms, plain_ms, bnd))
+
+
+def check_scatter_add_weighted(gen, report):
+    """B6's scatter against scatter_add_weighted_ref at both paths' shapes
+    (ShapeNet B=64, N=2048, 51 channels; S3DIS B=28, N=4096, 14 channels;
+    k=10). Tolerance: f32 atomics add in a run-dependent order, 1e-5 of
+    the sum of magnitudes sum |w| |ct| per output element (ROADMAP C4).
+    The library time is one index_add_ of the expanded w * ct."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import scatter
+
+    times = {}
+    for b, n, c in ((SB, SN, 51), (RB, RN, 14)):
+        idx = torch.randint(0, n, (b, n, SK), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        w = torch.rand((b, n, SK), generator=gen, device="cuda")
+        ct = torch.randn((b, n, c), generator=gen, device="cuda") * 1e-3
+        got = scatter.scatter_add_weighted(idx, w, ct, n)
+        want = scatter.scatter_add_weighted_ref(idx, w, ct, n)
+        mags = scatter.scatter_add_weighted_ref(idx, w, ct.abs(), n)
+        torch.cuda.synchronize()
+        err = sum_err(got, want, mags)
+        require(err <= 1e-5, f"scatter_add_weighted C={c}: {err}")
+        ms = timed_ms(lambda: scatter.scatter_add_weighted(idx, w, ct, n))
+        plain_ms = timed_ms(lambda: scatter.scatter_add_weighted_ref(idx, w, ct, n))
+        rows = scatter._flat_rows(idx, n)
+        contrib = (w[..., None] * ct[:, :, None, :]).reshape(-1, c)
+        out = torch.zeros((b * n, c), device="cuda")
+        lib_ms = timed_ms(lambda: out.index_add_(0, rows, contrib))
+        del contrib, rows, out
+        bnd = bound(2.0 * idx.numel() * c, "f32", nbytes(idx, w, ct, got))
+        times[c] = ((got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms)
+        print(f"  scatter_add_weighted (B6) B={b} P=N={n} k={SK} C={c}: "
+              f"{err:.2e} of the magnitudes; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    max_err, ms, plain_ms, bnd, lib_ms = times[51]
+    report.append(kernel_row(
+        "scatter_add_weighted (B6)",
+        "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_w.cu",
+        "weaksuppointcloudseg_tpu/ops/scatter_pallas.py:299",
+        max(max_err, times[14][0]), ms, plain_ms, bnd, library_ms=lib_ms))
+
+
+def check_knn_wgather(gen, report):
+    """B9 against knn_wgather_ref at the S3DIS smoothness shape (B=28,
+    N=4096, xyzrgb, k=10, 13 classes + |P|^2, gamma 0.1), exact and fast,
+    on blocks of which a quarter repeat points. Tolerances: indices by
+    agreement rate (>= 99.9% exact, >= 98% fast, as B12); the weights
+    against exp(-max(d, 0) / gamma) of the plain distances at the kernel's
+    own indices, within what the distance tolerance (1e-5 of the distance
+    scale; fast: the dropped idx_bits) moves them; s against the plain
+    weighted sum at the kernel's own indices and weights, 1e-5 of the sum
+    of magnitudes. A repeated point's first neighbour is the lowest index
+    of its copies (exact)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import knn, wgather
+
+    gamma = 0.1
+    g = s3dis_blocks(gen, RB, RN)
+    f = smooth_features(gen, RB, RN, 13)
+    times, max_err = {}, 0.0
+    for fast in (False, True):
+        idx, s, w = wgather.knn_wgather(g, f, SK, gamma, fast=fast)
+        want_idx = wgather.knn_wgather_ref(g, f, SK, gamma, fast=fast)[0]
+        torch.cuda.synchronize()
+        agree = (idx == want_idx).float().mean().item()
+        require(agree >= (0.98 if fast else 0.999),
+                f"knn_wgather fast={fast}: index agreement {agree}")
+        del want_idx
+        if not fast:
+            self_first = (idx[:, :, 0] <= torch.arange(RN, device="cuda")).all()
+            require(bool(self_first), "knn_wgather: a copy before the lowest index")
+        d_sel = torch.gather(knn.distances(g), 2, idx.long()).clamp_min(0.0)
+        scale = (g.double() ** 2).sum(-1).max().item()
+        tol_d = scale * (2.0 ** (knn.idx_bits(RN) - 23) if fast else 1e-5)
+        w_ref = torch.exp(-d_sel / gamma)
+        w_err = ((w - w_ref).abs() / (w_ref * tol_d / gamma + 1e-6)).max().item()
+        s_err = sum_err(s, wgather.wgather_pre_ref(idx, w, f),
+                        wgather.wgather_pre_ref(idx, w, f.abs()))
+        require(w_err <= 1.0 and s_err <= 1e-5,
+                f"knn_wgather fast={fast}: w {w_err}, s {s_err}")
+        max_err = max(max_err, (w - w_ref).abs().max().item())
+        ms = timed_ms(lambda: wgather.knn_wgather(g, f, SK, gamma, fast=fast))
+        plain_ms = timed_ms(lambda: wgather.knn_wgather_ref(g, f, SK, gamma,
+                                                            fast=fast), reps=3)
+        flops = 2.0 * gram_pairs(RB, RN) * 6 + 2.0 * idx.numel() * f.shape[-1]
+        bnd = bound(flops, "f32", nbytes(g, f, idx, s, w))
+        times[fast] = (ms, plain_ms, bnd)
+        print(f"  knn_wgather (B9) B={RB} N={RN} Cg=6 Cf=14 k={SK} fast={fast}: "
+              f"index agreement {agree:.6f}, w {w_err:.2f} of its tolerance, s "
+              f"{s_err:.2e} of the magnitudes; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{100 * bnd[0] / ms:.1f}% of bound")
+    report.append(kernel_row(
+        "knn_wgather (B9)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn_wgather.cu",
+        "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:1010", max_err,
+        *times[True]))
+
+
 def phase_kernels(report):
     import torch
 
@@ -715,6 +892,9 @@ def phase_kernels(report):
     check_conv_kmax_bwd(gen, report)
     check_scatter_bn_bwd(gen, report)
     check_conv_nmax(gen, report)
+    check_wgather_pre(gen, report)
+    check_scatter_add_weighted(gen, report)
+    check_knn_wgather(gen, report)
     torch.cuda.empty_cache()
 
 
@@ -1111,37 +1291,11 @@ def phase_plain_train(report) -> None:
         require(np.isfinite(m[key]), f"train metric {key} = {m[key]}")
     require(np.isfinite(val[0]) and 0 <= val[1] <= 1, f"eval {val}")
 
-    # a fixed batch: the seg loss must fall over the steps; step times
     b = next(ds.batches("train", PB))
     batch = trainer._to_device(trainer._assemble(
         b, siamese=False, augment_pairs=False, full_mask=False))
-    torch.cuda.reset_peak_memory_stats()
-    seg, step_s = [], []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = trainer.train_step(batch, 0.0, trainer.generator)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        seg.append(out["seg"])
-    seg = torch.stack(seg).cpu().numpy()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  seg loss on a fixed batch over 6 steps: "
-          + " ".join(f"{v:.4f}" for v in seg))
-    require(np.isfinite(seg).all() and seg[-1] < seg[0],
-            "the seg loss did not fall on a fixed batch")
-    card = card_line()
-    step = float(np.median(step_s[1:]))
-    print(f"  shapenet_plain_train_throughput: {step * 1e3:.3f} ms per step "
-          f"(median of 5), {PB * PN / step:.0f} points/s [{card}]")
-    print(f"  peak device memory of a training step {peak:.2f} GiB [{card}]")
-    busy_ms, wall_ms = device_breakdown(
-        lambda: trainer.train_step(batch, 0.0, trainer.generator), card,
-        runs=3, top=14, what="bf16 train step", ops=10)
-    print(f"  idle share of the step, this run: 1 - busy {busy_ms:.3f} / "
-          f"median step {step * 1e3:.3f} ms = {1 - busy_ms / (step * 1e3):.3f}; "
-          f"the profiler's own cost: its wall {wall_ms:.3f} ms - median step "
-          f"= {wall_ms - step * 1e3:.3f} ms")
+    time_fixed_batch(trainer, batch, PB * PN, "shapenet_plain_train_throughput",
+                     "bf16 train step", gate=0.0)
 
     # one fused step of 2 clouds of 2048 points, full widths, dropout off,
     # two seeds of random weights (fused_step_vs_cpu). Limits, at least
@@ -1184,6 +1338,306 @@ def phase_plain_train(report) -> None:
                 "CUDA fused training forward disagrees with the CPU")
         require(leaf[-1][0] <= 0.4 and null_err <= 1.5e-2,
                 "CUDA fused gradients disagree with the CPU")
+
+
+# ---------------------------------------------------------------- phase 6
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name = value`` for the duration."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def count_launches(kernels, run):
+    """Reset every kernel's count, call ``run()`` and return (its result,
+    {name: launches during the call})."""
+    for fn in kernels.values():
+        fn.launches = 0
+    out = run()
+    return out, {name: fn.launches for name, fn in kernels.items()}
+
+
+def fused_train_kernels():
+    """The kernels of the bf16 fused training path and its evaluate, with
+    the two smoothness-loss routes (B6 gather on a reused graph, B9)."""
+    from weaksuppointcloudseg_tpu_torch.ops import (
+        conv_kmax,
+        edgeconv,
+        scatter,
+        wgather,
+    )
+
+    return {"knn_edge (B1)": edgeconv.knn_edge,
+            "conv_minmax (B2)": conv_kmax.conv_minmax,
+            "conv_kmax_bwd (B3)": conv_kmax.conv_kmax_bwd,
+            "scatter_bn_bwd (B4)": scatter.scatter_bn_bwd,
+            "conv_nmax (B5)": conv_kmax.conv_nmax,
+            "conv_nmax_bwd (B5)": conv_kmax.conv_nmax_bwd,
+            "wgather_pre (B6)": wgather.wgather_pre,
+            "scatter_add_weighted (B6)": scatter.scatter_add_weighted,
+            "knn_wgather (B9)": wgather.knn_wgather,
+            "conv_zmax (B7)": conv_kmax.conv_zmax,
+            "conv_znmax (B8)": conv_kmax.conv_znmax}
+
+
+def time_fixed_batch(trainer, batch, n_unique, metric, what, gate=1.0):
+    """Six steps of ``trainer`` on one batch (rampup ``gate``): every loss
+    finite, the seg loss falling; prints ``metric`` (unique points/s over
+    the median of the last five steps, host clock around a synchronise),
+    the peak memory, the device time by kernel and the idle share."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    seg, step_s = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, gate, trainer.generator)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        seg.append(out["seg"])
+        require(all(bool(torch.isfinite(v)) for v in out.values()
+                    if torch.is_tensor(v)), f"{what}: a loss is not finite: {out}")
+    seg = torch.stack(seg).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  seg loss on a fixed batch over 6 steps: "
+          + " ".join(f"{v:.4f}" for v in seg))
+    require(np.isfinite(seg).all() and seg[-1] < seg[0],
+            f"{what}: the seg loss did not fall on a fixed batch")
+    card = card_line()
+    step = float(np.median(step_s[1:]))
+    print(f"  {metric}: {step * 1e3:.3f} ms per step (median of 5), "
+          f"{n_unique / step:.0f} unique points/s [{card}]")
+    print(f"  peak device memory of a training step {peak:.2f} GiB [{card}]")
+    busy_ms, wall_ms = device_breakdown(
+        lambda: trainer.train_step(batch, gate, trainer.generator), card,
+        runs=3, top=16, what=what, ops=10)
+    print(f"  idle share of the step, this run: 1 - busy {busy_ms:.3f} / "
+          f"median step {step * 1e3:.3f} ms = {1 - busy_ms / (step * 1e3):.3f}; "
+          f"the profiler's own cost: its wall {wall_ms:.3f} ms - median step "
+          f"= {wall_ms - step * 1e3:.3f} ms")
+
+
+def check_full_epoch(res) -> None:
+    """A training CLI's Full-style epoch (gate on) and evaluation: every
+    loss finite, the smoothness loss positive, the eval metrics finite."""
+    m = res["train"]
+    print(f"  epoch metrics: " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    print(f"  eval: {res['eval']}")
+    for key in ("seg", "siamese", "inexact", "smooth", "total", "acc"):
+        require(np.isfinite(m[key]), f"train metric {key} = {m[key]}")
+    require(m["smooth"] > 0, "the gate is on: the smoothness loss is positive")
+    require(all(np.isfinite(v) for v in res["eval"].values()),
+            f"eval {res['eval']}")
+
+
+def check_path_launches(report, launches, absent, rows, what):
+    """Every kernel of ``launches`` but ``absent`` launched during the run,
+    ``absent`` never; the report rows named in ``rows`` take this run's
+    counts."""
+    for name, n in launches.items():
+        require((n == 0) == (name == absent),
+                f"{name} launched {n} times on {what}")
+    for row in report:
+        if row["name"] in rows:
+            row["launches"] = launches[row["name"]]
+
+
+def phase_full_train(report) -> None:
+    """bf16 Full-style ShapeNet training through the training CLI at
+    bench.py's shapenet_full_train_throughput shape: the fused blocks and
+    the fused smoothness loss over the transform stage's reused graph."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.cli import train_shapenet
+    from weaksuppointcloudseg_tpu_torch.data import sampling, shapenet
+    from weaksuppointcloudseg_tpu_torch.losses.weaksup import (
+        smooth_knn_laplacian_fused,
+    )
+    from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
+
+    print(f"phase 6: bf16 Full-style ShapeNet training end to end "
+          f"(cli.train_shapenet), {PB} unique x 2 Siamese x {PN} points, "
+          f"fused blocks, knn_fast, smoothness over the reused graph")
+    rng = np.random.default_rng(1)  # phase 5's split
+    splits = {"train": synthetic_split(3 * PB, rng),
+              "val": synthetic_split(24, rng)}
+    kernels = fused_train_kernels()
+    argv = ["-m", "0.1", "-sty", "Full", "--Precision", "bfloat16",
+            "--FastKNN", "-bs", str(PB), "--Epoch", "1", "--Rampup", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_meta(f"{tmp}/hdf5_data")
+        # the script needs no h5py: only the h5 reader is replaced
+        with patched(shapenet.ShapeNetDataset, "_load_split",
+                     lambda self, name: splits[name.split("_")[0]]):
+            t0 = time.perf_counter()
+            res, launches = count_launches(
+                kernels, lambda: train_shapenet.main(["--DataPath", tmp, *argv]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ds = shapenet.ShapeNetDataset(tmp)
+            ds.split("train")
+            ds.split("val")
+    print(f"  cli run (1 epoch: 3 steps + evaluate of 24 val clouds): "
+          f"{wall:.2f} s wall (first calls included); launches {launches}")
+    check_full_epoch(res)
+    # the smoothness loss reuses the transform stage's graph: no B9
+    check_path_launches(report, launches, "knn_wgather (B9)",
+                        ("wgather_pre (B6)", "scatter_add_weighted (B6)"),
+                        "the bf16 Full ShapeNet path")
+
+    base = configs.shapenet_config()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
+                                        knn_fast=True),
+        train=dataclasses.replace(base.train, batch_size=PB, rampup=0))
+    pts_idx = sampling.generate_sample_index(3 * PB, PN, 0.1)
+    trainer = ShapeNetTrainer(cfg, ds, pts_idx, seed=0, device="cuda")
+    b = next(ds.batches("train", PB))
+    batch = trainer._to_device(trainer._assemble(
+        b, siamese=True, augment_pairs=True, full_mask=False))
+    time_fixed_batch(trainer, batch, PB * PN, "shapenet_full_train_throughput",
+                     "bf16 Full train step")
+
+    # the smoothness-loss block on its own, at one step's probabilities and
+    # reused graph: the kernel route (B6 gather, B6 scatter) against the
+    # plain route on the CPU. Tolerances: s sums in another order (1e-5 of
+    # its magnitudes) and |P|^2 may round to the other bf16 neighbour in
+    # f: the loss rtol 1e-4, d loss / d P within 2^-7 of its largest entry
+    logits, graph = trainer.model(batch["data"], batch["cat_onehot"],
+                                  training=True, bn_decay=0.5,
+                                  want_smooth_graph=True)
+    prob = torch.softmax(logits.detach(), -1)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        p = prob.to(dev, copy=True).requires_grad_()
+        loss = smooth_knn_laplacian_fused(
+            p, batch["data"].to(dev), gamma=cfg.weaksup.smooth_gamma,
+            k=cfg.weaksup.smooth_knn, fast=True,
+            graph=tuple(t.to(dev) for t in graph))
+        loss.backward()
+        outs.append((float(loss.detach()), p.grad.cpu()))
+    (lc, gc), (lp, gp) = outs
+    loss_err = abs(lc - lp) / abs(lp)
+    grad_err = ((gc - gp).abs().max() / gp.abs().max()).item()
+    print(f"  smoothness loss block, kernel vs plain route at one step's "
+          f"inputs ({logits.shape[0]} x {PN} points): loss {lc:.6e} vs "
+          f"{lp:.6e}, rel err {loss_err:.2e}; d loss / d P max err "
+          f"{grad_err:.2e} of its largest entry")
+    require(loss_err <= 1e-4 and grad_err <= 2.0 ** -7,
+            "the fused smoothness loss disagrees with its plain route")
+
+
+# ---------------------------------------------------------------- phase 7
+
+def write_s3dis_split(base: str, rng: np.random.Generator, train_blocks: int,
+                      val_blocks: int) -> None:
+    """An S3DIS-format block split with numpy only: 4096-point blocks of 9
+    channels (xy centred in a 1 m block, z, rgb / 255, xyz normalized by
+    a 6 x 6 x 3 m room) with 13 labels by height and by wall distance,
+    shards listed in all_files.txt, one room name per block in
+    room_filelist.txt (Area_1-4 for training, Area_5 for validation). A
+    third of the blocks hold 2048-4095 distinct points padded with
+    repeats, as the block sampler pads short blocks. The shards are .npz
+    files (the script needs no h5py; phase 7 reads them with
+    numpy)."""
+    import os
+
+    os.makedirs(base, exist_ok=True)
+    rooms, files, total = [], [], train_blocks + val_blocks
+    data = np.empty((total, RN, 9), np.float32)
+    label = np.empty((total, RN), np.int32)
+    for i in range(total):
+        bx, by = rng.integers(0, 6, 2)
+        m = int(rng.integers(RN // 2, RN)) if i % 3 == 0 else RN
+        xyz = rng.random((m, 3)) * np.array([1.0, 1.0, 3.0]) + np.array([bx, by, 0])
+        xyz = xyz[np.concatenate([np.arange(m), rng.integers(0, m, RN - m)])]
+        wall = np.minimum.reduce([xyz[:, 0], xyz[:, 1], 6 - xyz[:, 0], 6 - xyz[:, 1]])
+        lab = np.minimum((xyz[:, 2] / 3.0 * 10).astype(int), 9)
+        lab = np.where(wall < 0.3, 10 + (xyz[:, 2] > 1.5), lab)
+        lab[rng.random(RN) < 0.02] = 12
+        rgb = np.clip(lab[:, None] / 12.0 + rng.random((RN, 3)) * 0.3, 0, 1)
+        data[i] = np.concatenate([
+            xyz - np.array([bx + 0.5, by + 0.5, 0]), rgb,
+            xyz / np.array([6.0, 6.0, 3.0])], axis=1)
+        label[i] = lab
+        area = 5 if i >= train_blocks else 1 + i % 4
+        rooms.append(f"Area_{area}_room_{i // 4}")
+    for j, sl in enumerate((slice(0, total // 2), slice(total // 2, total))):
+        name = f"ply_data_all_{j}.npz"
+        np.savez(os.path.join(base, name), data=data[sl], label=label[sl])
+        files.append(f"indoor3d_sem_seg_hdf5_data/{name}")
+    with open(os.path.join(base, "all_files.txt"), "w") as f:
+        f.write("\n".join(files) + "\n")
+    with open(os.path.join(base, "room_filelist.txt"), "w") as f:
+        f.write("\n".join(rooms) + "\n")
+
+
+def load_npz_shard(path):
+    with np.load(path) as z:
+        return z["data"].astype(np.float32), z["label"].astype(np.int32)
+
+
+def phase_s3dis_train(report) -> None:
+    """bf16 Full-style S3DIS training through the training CLI at bench.py's
+    s3dis_full_train_throughput shape: the fused blocks and the fused
+    smoothness loss over kernel B9 (backward B6)."""
+    import dataclasses
+    import tempfile
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.cli import train_s3dis
+    from weaksuppointcloudseg_tpu_torch.data import s3dis, sampling
+    from weaksuppointcloudseg_tpu_torch.train.loop import S3DISTrainer
+
+    ub = RB // 2
+    print(f"phase 7: bf16 Full-style S3DIS training end to end "
+          f"(cli.train_s3dis), {ub} unique x 2 Siamese x {RN} points, fused "
+          f"blocks, knn_fast, smoothness by B9")
+    kernels = fused_train_kernels()
+    argv = ["-m", "0.1", "-sty", "Full", "-bs", str(ub), "--Precision",
+            "bfloat16", "--FastKNN", "-ta", "5", "--Epoch", "1", "--Rampup", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = f"{tmp}/indoor3d_sem_seg_hdf5_data"
+        write_s3dis_split(data_path, np.random.default_rng(2), 3 * ub, ub)
+        with patched(s3dis, "load_h5", load_npz_shard):
+            t0 = time.perf_counter()
+            res, launches = count_launches(
+                kernels,
+                lambda: train_s3dis.main(["--DataPath", data_path, *argv]))
+            wall = time.perf_counter() - t0
+            ds = s3dis.S3DISDataset(data_path)
+            ds.load_all()
+    print(f"  cli run (1 epoch: 3 steps + evaluate of {ub} Area_5 blocks): "
+          f"{wall:.2f} s wall (first calls included); launches {launches}")
+    check_full_epoch(res)
+    # no transform stage, so no graph to reuse: B9 selects, no B6 gather
+    check_path_launches(report, launches, "wgather_pre (B6)",
+                        ("knn_wgather (B9)",), "the bf16 Full S3DIS path")
+
+    base = configs.s3dis_config()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
+                                        knn_fast=True),
+        train=dataclasses.replace(base.train, batch_size=ub, style="Full",
+                                  rampup=0))
+    pts_idx = sampling.generate_sample_index(len(ds.room_filelist), RN, 0.1)
+    trainer = S3DISTrainer(cfg, ds, pts_idx, test_area=5, seed=0,
+                           device="cuda")
+    b = next(ds.batches(trainer.train_idx, ub))
+    batch = trainer._to_device(trainer._assemble(
+        b, siamese=True, augment_pairs=True, full_mask=False))
+    time_fixed_batch(trainer, batch, ub * RN, "s3dis_full_train_throughput",
+                     "bf16 Full S3DIS train step")
 
 
 def fused_step_vs_cpu(model_cfg, sub, seed):
@@ -1276,7 +1730,9 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 # device kernels by the kind of work (first match wins)
 KERNEL_GROUPS = (
     ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
-    ("knn_kernel", "B12"), ("sqnorm_kernel", "B1/B12 norms"),
+    ("KnnOut", "B12"), ("WGatherOut", "B9"),
+    ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
+    ("scatter_add_weighted", "B6 scatter"),
     ("scatter_add_kernel", "B13"), ("conv_minmax", "B2"),
     ("conv_kmax_bwd", "B3"), ("scatter_bn_bwd", "B4"),
     ("conv_nmax", "B5 fwd"), ("nmax_bwd", "B5 bwd"), ("gemm", "cuBLAS GEMM"),
@@ -1306,6 +1762,8 @@ def main() -> int:
     phase_end_to_end(report)
     phase_train(report)
     phase_plain_train(report)
+    phase_full_train(report)
+    phase_s3dis_train(report)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -72,8 +72,11 @@ def rows():
         ("B6", "scatter_pallas.py:299", "training smooth k=10, 50+1 ch",
          2.0 * TB * TN * 10 * 51, "f32",
          TB * TN * 10 * (I32 + F32) + 2 * TB * TN * 51 * F32),
+        ("B6", "scatter_pallas.py:299", "S3DIS smooth k=10, 13+1 ch",
+         2.0 * RB * RN * RK * 14, "f32",
+         RB * RN * RK * (I32 + F32) + 2 * RB * RN * 14 * F32),
         ("B9", "edgeconv_pallas.py:1010", "S3DIS xyzrgb k=10, 13+1 ch",
-         2.0 * gram_pairs(RB, RN) * RC, "f32",
+         2.0 * gram_pairs(RB, RN) * RC + 2.0 * RB * RN * RK * 14, "f32",
          RB * RN * RC * F32 + RB * RN * 14 * BF16
          + RB * RN * RK * (I32 + F32) + RB * RN * 14 * F32),
         ("B10", "affinity_pallas.py:272", "room LP, one matvec",

@@ -17,7 +17,13 @@ import torch
 
 from weaksuppointcloudseg_tpu_torch import configs
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
-from weaksuppointcloudseg_tpu_torch.ops import conv_kmax, edgeconv, knn, scatter
+from weaksuppointcloudseg_tpu_torch.ops import (
+    conv_kmax,
+    edgeconv,
+    knn,
+    scatter,
+    wgather,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -513,9 +519,10 @@ def test_fused_train_step_on_cuda_matches_cpu(gen):
 
 def test_model_gate_on_cuda(gen):
     """bf16 + fused kNN runs the fused kernels (counters grow) and agrees
-    with the same composition over the plain versions on the CPU; f32 +
-    use_fused_knn runs B12 at eval and agrees with the CPU; the
-    configurations still unported raise and name their kernels."""
+    with the same composition over the plain versions on the CPU; its
+    Full-style loss runs B6; f32 + use_fused_knn runs B12 at eval and
+    agrees with the CPU; the configurations still unported raise and name
+    their kernels."""
     cfg = dataclasses.replace(configs.shapenet_config().model,
                               compute_dtype="bfloat16", knn_fast=True)
     model = DGCNNSeg(cfg).eval()
@@ -546,12 +553,126 @@ def test_model_gate_on_cuda(gen):
     full = dataclasses.replace(full, model=cfg)
     batch = {"data": x, "cat_onehot": cat, "seg_onehot": torch.zeros(
         (2, 500, 50), device="cuda"), "mask": torch.ones((2, 500), device="cuda")}
-    with pytest.raises(NotImplementedError, match="B6"):
-        loss_fn(model.cuda(), batch, cfg=full, style="Full", bn_decay=0.5,
-                gate=1.0)
+    # the bf16 Full-style loss runs the fused smoothness loss over the
+    # transform stage's graph: B6's gather forward, its scatter backward
+    before = (wgather.wgather_pre.launches, wgather.knn_wgather.launches,
+              scatter.scatter_add_weighted.launches)
+    total, comps, _ = loss_fn(model.cuda().train(), batch, cfg=full,
+                              style="Full", bn_decay=0.5, gate=1.0)
+    total.backward()
+    assert (wgather.wgather_pre.launches - before[0],
+            wgather.knn_wgather.launches - before[1],
+            scatter.scatter_add_weighted.launches - before[2]) == (1, 0, 1)
+    assert all(bool(torch.isfinite(v)) for v in comps.values())
     unfused = DGCNNSeg(dataclasses.replace(cfg, use_fused_knn=False)).cuda()
     with pytest.raises(NotImplementedError, match="B14"):
         unfused(x, cat)
     f32_unfused = DGCNNSeg(dataclasses.replace(f32_cfg, use_fused_knn=False)).cuda()
     with pytest.raises(NotImplementedError, match="use_fused_knn"):
         f32_unfused(x, cat)
+
+
+def mag_sum_ok(got, want, mags, tol=1e-5):
+    """|got - want| within ``tol`` of the sum of magnitudes of each element
+    (f32 sums in another order, ROADMAP C4)."""
+    return bool(((got - want).abs() <= tol * mags + 1e-7).all())
+
+
+@pytest.mark.parametrize("c,n", [(51, 333), (14, 1001)])
+def test_scatter_add_weighted_kernel(gen, c, n):
+    """B6's scatter against its plain version (index_add_ of the expanded
+    w * ct): f32 atomics add in a run-dependent order, so 1e-5 of the sum
+    of magnitudes sum |w| |ct| of each output element."""
+    b, p, k = 2, n, 10
+    idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand((b, p, k), generator=gen, device="cuda")
+    ct = torch.randn((b, p, c), generator=gen, device="cuda")
+    before = scatter.scatter_add_weighted.launches
+    got = scatter.scatter_add_weighted(idx, w, ct, n)
+    assert scatter.scatter_add_weighted.launches == before + 1
+    want = scatter.scatter_add_weighted_ref(idx, w, ct, n)
+    mags = scatter.scatter_add_weighted_ref(idx, w, ct.abs(), n)
+    assert mag_sum_ok(got, want, mags)
+
+
+@pytest.mark.parametrize("c,n", [(51, 333), (14, 1001)])
+def test_wgather_pre_kernel(gen, c, n):
+    """B6's gather against its plain version: the k products summed in
+    another order (and fused multiply-adds), 1e-5 of sum_j |w_j| |f_j|."""
+    b, k = 2, 10
+    idx = torch.randint(0, n, (b, n, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand((b, n, k), generator=gen, device="cuda")
+    f = randn(gen, (b, n, c))
+    before = wgather.wgather_pre.launches
+    got = wgather.wgather_pre(idx, w, f)
+    assert wgather.wgather_pre.launches == before + 1
+    want = wgather.wgather_pre_ref(idx, w, f)
+    assert mag_sum_ok(got, want, wgather.wgather_pre_ref(idx, w, f.abs()))
+
+
+@pytest.mark.parametrize("fast,ties,n", [(False, False, 701), (True, False, 701),
+                                         (False, True, 333), (True, True, 333)])
+def test_knn_wgather_kernel(gen, fast, ties, n):
+    """B9 against its plain version on S3DIS-like points (xyzrgb in a
+    unit block, gamma 0.1, k=10, 13+1 feature channels), N not a multiple
+    of 8; with ``ties`` the second half of every block repeats the first,
+    as S3DIS blocks of few points do, so exact distances tie at 0 and the
+    lowest index must win. Indices by agreement rate (exact >= 99.9%,
+    fast >= 98%, as B12); the weights against exp(-max(d, 0) / gamma) of
+    the plain distances at the kernel's own indices, within what the
+    distances' tolerance moves them (exact 1e-5 of the distance scale,
+    fast the dropped idx_bits); s against the plain weighted sum at the
+    kernel's own indices and weights, 1e-5 of the sum of magnitudes."""
+    b, k, gamma = 3, 10, 0.1
+    g = torch.rand((b, n, 6), generator=gen, device="cuda")
+    if ties:
+        g[:, n - n // 2:] = g[:, :n // 2]
+    f = randn(gen, (b, n, 14)).abs()
+    before = wgather.knn_wgather.launches
+    idx, s, w = wgather.knn_wgather(g, f, k, gamma, fast=fast)
+    assert wgather.knn_wgather.launches == before + 1
+    want_idx = wgather.knn_wgather_ref(g, f, k, gamma, fast=fast)[0]
+    agree = (idx == want_idx).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+    if ties and not fast:
+        # each repeated point and its original are both at distance 0:
+        # the lower index comes first
+        first = idx[:, n - n // 2:, 0]
+        assert torch.equal(first, torch.arange(n // 2, device="cuda",
+                                               dtype=torch.int32).expand_as(first))
+    d = knn.distances(g)
+    d_sel = torch.gather(d, 2, idx.long()).clamp_min(0.0)
+    scale = d.abs().max().item()
+    tol_d = scale * (2.0 ** (knn.idx_bits(n) - 23) if fast else 1e-5)
+    w_ref = torch.exp(-d_sel / gamma)
+    assert bool(((w - w_ref).abs() <= w_ref * (tol_d / gamma) * 1.01 + 1e-6).all())
+    assert mag_sum_ok(s, wgather.wgather_pre_ref(idx, w, f),
+                      wgather.wgather_pre_ref(idx, w, f.abs()))
+
+
+def test_weighted_gathers_never_reach_plain_versions(gen, monkeypatch):
+    """The differentiable gathers on CUDA tensors launch their kernels
+    forward (B6 gather, B9) and backward (B6 scatter), once each per call,
+    and never call a plain version (patched to raise here)."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((wgather, "wgather_pre_ref"), (wgather, "knn_wgather_ref"),
+                      (scatter, "scatter_add_weighted_ref"),
+                      (scatter, "scatter_add_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    b, n, k = 2, 257, 10
+    g = torch.rand((b, n, 6), generator=gen, device="cuda")
+    f = randn(gen, (b, n, 14)).requires_grad_()
+    kernels = (wgather.wgather_pre, wgather.knn_wgather,
+               scatter.scatter_add_weighted)
+    before = [fn.launches for fn in kernels]
+    idx, s, w = wgather.knn_weighted_gather(g, f, k, 0.1, fast=True)
+    s.sum().backward()
+    s2 = wgather.weighted_gather_pre(idx, w, f)
+    (s2 * 2).sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.launches - c for fn, c in zip(kernels, before)] == [1, 1, 2]
+    assert f.grad.dtype == torch.bfloat16 and bool(f.grad.isfinite().all())

@@ -1,5 +1,5 @@
 """The port's bf16 Plain-style training step against the JAX package on
-the CPU, its routes, and the training CLI in bf16.
+the CPU, the routes of bf16 training, and the training CLI in bf16.
 
 The step: ``DGCNNSeg.forward_fused(training=True)`` + masked CE + backward
 against ``train/steps.py::_loss_fn`` on the JAX model's fused branch (its
@@ -36,9 +36,13 @@ from weaksuppointcloudseg_tpu import configs as jc
 from weaksuppointcloudseg_tpu.models import dgcnn as jdgcnn
 from weaksuppointcloudseg_tpu.models import layers as jlayers
 from weaksuppointcloudseg_tpu.train.steps import _loss_fn
+from weaksuppointcloudseg_tpu_torch import configs as pc
 from weaksuppointcloudseg_tpu_torch.losses.weaksup import masked_softmax_ce
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
-from weaksuppointcloudseg_tpu_torch.train.steps import check_loss_route
+from weaksuppointcloudseg_tpu_torch.train.steps import (
+    fused_route,
+    smooth_graph_reusable,
+)
 from weaksuppointcloudseg_tpu_torch.utils.checkpoint import params_from_jax
 
 torch.set_num_threads(1)
@@ -189,9 +193,11 @@ def test_replay_reproduces_a_step():
 
 def test_routes_of_bf16_training():
     """On CUDA a bf16 model with the fused kNN routes training and eval to
-    the fused blocks; without the fused kNN it names B14. The Full-style
-    loss of such a model names B6 (the loss route needs no card); Plain
-    style, f32 and the CPU pass."""
+    the fused blocks; without the fused kNN it names B14. Its Full-style
+    loss takes the fused smoothness loss on the card (B6, or B9 without a
+    reusable graph) and reuses the transform stage's graph where the loss
+    and the stage share coordinates and k covers the loss's; f32 and the
+    CPU take the plain loss (the route needs no card)."""
     cfg = port_cfg(jax_cfg(True))
     model = DGCNNSeg(cfg.model)
     assert model._cuda_route() == "fused"
@@ -200,12 +206,26 @@ def test_routes_of_bf16_training():
         unfused._cuda_route()
     f32 = DGCNNSeg(dataclasses.replace(cfg.model, compute_dtype="float32"))
     assert f32._cuda_route() == "plain"
-    cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="B6"):
-        check_loss_route(cfg, "Full", cuda)
-    check_loss_route(cfg, "Plain", cuda)
-    check_loss_route(cfg, "Full", torch.device("cpu"))
-    check_loss_route(dataclasses.replace(cfg, model=f32.cfg), "Full", cuda)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = dataclasses.replace(cfg, weaksup=dataclasses.replace(
+        cfg.weaksup, smooth_knn=cfg.model.k))
+    assert fused_route(cfg, cuda) and smooth_graph_reusable(cfg, cuda)
+    assert not fused_route(cfg, cpu) and not smooth_graph_reusable(cfg, cpu)
+    f32_cfg = dataclasses.replace(cfg, model=f32.cfg)
+    assert not fused_route(f32_cfg, cuda)
+    assert not smooth_graph_reusable(f32_cfg, cuda)
+    for change in (dict(smooth_knn=cfg.model.k + 1),
+                   dict(smooth_channels=(0, 3))):
+        other = dataclasses.replace(
+            cfg, weaksup=dataclasses.replace(cfg.weaksup, **change))
+        assert fused_route(other, cuda) and not smooth_graph_reusable(other, cuda)
+    s3dis = pc.s3dis_config()
+    s3dis = dataclasses.replace(s3dis, model=dataclasses.replace(
+        s3dis.model, compute_dtype="bfloat16"))
+    assert fused_route(s3dis, cuda) and not smooth_graph_reusable(s3dis, cuda)
+    with pytest.raises(ValueError, match="fused-path"):
+        model(torch.zeros(2, 16, 3), torch.zeros(2, NUM_CATS), training=True,
+              bn_decay=DECAY, want_smooth_graph=True)
 
 
 def test_train_cli_plain_bf16_on_cpu(tmp_path, monkeypatch, capsys):

@@ -6,16 +6,18 @@ counterpart at the same relative path there, and the tests in
 
 Ported so far: the ShapeNet test path (eval forward in bf16 with the fused
 EdgeConv blocks, or in f32, then label propagation), ShapeNet Full-style
-training at the default f32 precision, and ShapeNet Plain-style training
-in bf16 through the fused blocks, with ten hand-written Hopper kernels
-(``ops/csrc/*.cu``). The bf16 Full-style loss, S3DIS and the other solvers
+training at the default f32 precision, and Plain- and Full-style training
+of ShapeNet and S3DIS in bf16 through the fused blocks and the fused
+smoothness loss, with thirteen hand-written Hopper kernels
+(``ops/csrc/*.cu``). The S3DIS test path, room LP and the other solvers
 are still to port (ROADMAP.md).
 
 This package imports neither JAX nor the JAX package: the configs, the
-ShapeNet readers, the augmentation and label sampling, and the IoU metrics
-it needs are its own copies (``configs``, ``data/``, ``metrics/iou.py``),
-held equal to the originals by tests/test_torch_data.py and
-tests/test_torch_train.py.
+ShapeNet and S3DIS readers, the augmentation and label sampling, and the
+metrics it needs are its own copies (``configs``, ``data/``,
+``metrics/iou.py``), held equal to the originals by
+tests/test_torch_data.py, tests/test_torch_train.py and
+tests/test_torch_s3dis.py.
 """
 
 import torch

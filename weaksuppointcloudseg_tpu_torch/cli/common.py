@@ -1,6 +1,6 @@
 """Shared CLI plumbing of the port: the reference's flags and config
-assembly (counterpart of weaksuppointcloudseg_tpu/cli/common.py, ShapeNet
-only), plus ``--device``. Every CLI runs on the card by default
+assembly for ShapeNet and S3DIS (counterpart of weaksuppointcloudseg_tpu/
+cli/common.py), plus ``--device``. Every CLI runs on the card by default
 (``cuda:<--GPU>``) and raises where there is none unless ``--device cpu``
 is given.
 """
@@ -18,10 +18,11 @@ from weaksuppointcloudseg_tpu_torch import configs
 from weaksuppointcloudseg_tpu_torch.utils.tools import resolve_device
 
 
-def base_parser(*, train: bool) -> argparse.ArgumentParser:
-    """The reference's ShapeNet flags (train or test) and ``--device``.
-    Flags the port cannot honour yet are accepted and refused by
-    :func:`refuse_unported`."""
+def base_parser(dataset: str = "ShapeNet", *,
+                train: bool) -> argparse.ArgumentParser:
+    """The reference's flags of a ``dataset`` CLI (train or test) and
+    ``--device``. Flags the port cannot honour yet are accepted and refused
+    by :func:`refuse_unported`."""
     p = argparse.ArgumentParser(description="Take parameters")
     p.add_argument("--GPU", "-gpu", type=int, default=0, help="CUDA device index")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -32,7 +33,7 @@ def base_parser(*, train: bool) -> argparse.ArgumentParser:
     p.add_argument("--Network", "-net", type=str, default="DGCNN",
                    help="[options: DGCNN]")
     p.add_argument("--DataPath", type=str, default=None,
-                   help="dataset root [default: ./Dataset/ShapeNet]")
+                   help=f"dataset root [default: ./Dataset/{dataset}]")
     p.add_argument("--num_devices", type=int, default=0,
                    help="data-parallel size (not ported: must be <= 1)")
     p.add_argument("--seed", type=int, default=0)
@@ -41,7 +42,7 @@ def base_parser(*, train: bool) -> argparse.ArgumentParser:
                    help="compute dtype (default: the preset's float32, "
                         "kernels B12/B13 on the card); bfloat16 runs the "
                         "fused kernels (B1-B5 training, B1/B7/B8 eval; "
-                        "-sty Full in bfloat16 needs B6, not ported yet)")
+                        "the -sty Full smoothness loss B6, or B9 on S3DIS)")
     p.add_argument("--FastKNN", action="store_true",
                    help="packed-min top-k selection")
     p.add_argument("--StaticGraph", action="store_true",
@@ -51,7 +52,8 @@ def base_parser(*, train: bool) -> argparse.ArgumentParser:
     p.add_argument("--debug_nans", action="store_true",
                    help="not supported by the port")
     if train:
-        p.add_argument("--batchsize", "-bs", type=int, default=6)
+        p.add_argument("--batchsize", "-bs", type=int,
+                       default=6 if dataset == "ShapeNet" else 3)
         p.add_argument("--ExpRslt", "-er",
                        type=lambda s: s not in ("0", "False", ""),
                        default=False, help="export results/checkpoints")
@@ -95,10 +97,11 @@ def device(args) -> torch.device:
     return resolve_device(f"cuda:{args.GPU}" if args.device == "cuda" else "cpu")
 
 
-def build_config(args) -> configs.ExperimentConfig:
-    """The ShapeNet preset with the flags applied (cli/common.py::
+def build_config(args, dataset: str = "ShapeNet") -> configs.ExperimentConfig:
+    """The dataset's preset with the flags applied (cli/common.py::
     build_config)."""
-    cfg = configs.shapenet_config()
+    make = configs.shapenet_config if dataset == "ShapeNet" else configs.s3dis_config
+    cfg = make()
     train = dataclasses.replace(
         cfg.train,
         batch_size=getattr(args, "batchsize", cfg.train.batch_size),
@@ -123,9 +126,9 @@ def build_config(args) -> configs.ExperimentConfig:
                                weaksup=weaksup, labelprop=labelprop)
 
 
-def result_base_path(args) -> str:
-    """Results/ShapeNet/<Net>_sty-<Style>_m-<m>_<datetime>
+def result_base_path(args, dataset: str = "ShapeNet") -> str:
+    """Results/<dataset>/<Net>_sty-<Style>_m-<m>_<datetime>
     (train_ShapeNet.py:59-62)."""
     dt = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     return os.path.expanduser(
-        f"./Results/ShapeNet/{args.Network}_sty-{args.Style}_m-{args.m}_{dt}")
+        f"./Results/{dataset}/{args.Network}_sty-{args.Style}_m-{args.m}_{dt}")

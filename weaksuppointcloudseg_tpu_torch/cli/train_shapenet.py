@@ -4,11 +4,12 @@ weaksuppointcloudseg_tpu/cli/train_shapenet.py, same flags and output).
     python -m weaksuppointcloudseg_tpu_torch.cli.train_shapenet \\
         -m 0.1 -sty Full -bs 32 --Epoch 201 --ExpRslt 1 [--device cpu]
     python -m weaksuppointcloudseg_tpu_torch.cli.train_shapenet \\
-        -m 0.1 -sty Plain --Precision bfloat16 --FastKNN -bs 32
+        -m 0.1 -sty Full --Precision bfloat16 --FastKNN -bs 32
 
 Trains at the preset's float32 precision (kernels B12 and B13 on the card)
-or, with ``--Precision bfloat16``, through the fused blocks (kernels B1-B5;
-Plain style only: the bf16 Full-style loss needs kernels B6),
+or, with ``--Precision bfloat16``, through the fused blocks (kernels B1-B5,
+and in Full style the fused smoothness loss over the transform stage's
+graph, kernels B6),
 evaluates on the val split every ``eval_every`` epochs and, with
 ``--ExpRslt``, writes the summary, a metrics log and format-v2 checkpoints
 that the test CLI restores. Runs on CUDA device ``--GPU``; where there is

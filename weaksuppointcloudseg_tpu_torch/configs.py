@@ -1,12 +1,12 @@
-"""Configuration of the ported paths (ShapeNet test and training).
+"""Configuration of the ported paths: the ShapeNet and S3DIS presets.
 
 Counterpart of weaksuppointcloudseg_tpu/configs.py: the fields keep the
 reference's names and defaults, so either package's configs drive either
 package's models (tests/test_torch_data.py holds the two equal). Fields of
-paths not ported yet (S3DIS's ``head_bn_fixed_decay``, data parallelism)
-come with those paths. ``TrainConfig.rng_impl`` is absent on purpose:
-"rbg" selects a TPU hardware random-bit generator for dropout, and the
-port's dropout draws from a ``torch.Generator``.
+paths not ported yet (data parallelism) come with those paths.
+``TrainConfig.rng_impl`` is absent on purpose: "rbg" selects a TPU
+hardware random-bit generator for dropout, and the port's dropout draws
+from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ class ScheduleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """DGCNN segmentation architecture (ShapeNet/DGCNN_ShapeNet.py:15-113)."""
+    """DGCNN segmentation architecture: ShapeNet (ShapeNet/
+    DGCNN_ShapeNet.py:15-113) and S3DIS (S3DIS/DGCNN_S3DIS.py:24-104)."""
 
     num_points: int = 2048
     in_channels: int = 3
@@ -49,6 +50,9 @@ class ModelConfig:
     # dropout keep-probability after each head layer (None: no dropout)
     head_keep_prob: Tuple[Optional[float], ...] = (0.6, 0.6, None)
     bn_eps: float = 1e-3
+    # the S3DIS head convs' BN stats decay at tf_util's fixed 0.9, not the
+    # scheduled rate (DGCNN_S3DIS.py:95-101); None: scheduled everywhere
+    head_bn_fixed_decay: Optional[float] = None
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     # the kNN kernels: B12 for f32, the fused EdgeConv kernels for bf16
     use_fused_knn: bool = True
@@ -61,10 +65,11 @@ class ModelConfig:
 class WeakSupConfig:
     """Weak-supervision loss settings (ShapeNet_DGCNN_trainer.py:115-133)."""
 
-    siamese_weight: float = 1.0
+    siamese_weight: float = 1.0  # S3DIS: 10 (S3DIS_DGCNN_trainer.py:128)
     smooth_gamma: float = 1e-1
     smooth_knn: int = 10
-    # channel range fed to the smooth loss distance (None: all channels)
+    # channel range fed to the smooth loss distance (None: all channels;
+    # S3DIS: xyzrgb, 0:6)
     smooth_channels: Optional[Tuple[int, int]] = None
     rampup: int = 101
     # True reproduces the released code's rampup gate, a frozen constant 0
@@ -117,5 +122,21 @@ def shapenet_config(**overrides) -> ExperimentConfig:
     weaksup = WeakSupConfig(siamese_weight=1.0, smooth_channels=None)
     train = TrainConfig(batch_size=6, style="Full", label_fraction=0.1)
     cfg = ExperimentConfig(dataset="ShapeNet", model=model, weaksup=weaksup,
+                           train=train)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def s3dis_config(**overrides) -> ExperimentConfig:
+    """The S3DIS preset (train_S3DIS.py defaults): 9 input channels, the kNN
+    graph on the normalized xyz 6:9, no transform net or category branch,
+    head 512/256 with the fixed BN decay, Siamese weight 10, smoothness on
+    xyzrgb 0:6."""
+    model = ModelConfig(num_points=4096, in_channels=9, num_classes=13, k=20,
+                        knn_channels=(6, 9), use_transform_net=False,
+                        num_categories=0, head_channels=(512, 256),
+                        head_keep_prob=(None, 0.7), head_bn_fixed_decay=0.9)
+    weaksup = WeakSupConfig(siamese_weight=10.0, smooth_channels=(0, 6))
+    train = TrainConfig(batch_size=3, style="Plain", label_fraction=0.1)
+    cfg = ExperimentConfig(dataset="S3DIS", model=model, weaksup=weaksup,
                            train=train)
     return dataclasses.replace(cfg, **overrides)

@@ -7,11 +7,15 @@ Util/SmoothConstraint.py:130-167):
 - inexact (MIL) category supervision, sigmoid CE on per-class max logits;
 - kNN-Laplacian smoothness of the softmax output.
 
-The smoothness loss is the reference's non-fused branch (weaksup.py:
-186-210): kNN with distances by kernel B12 (its plain version on CPU
-tensors), ``w = exp(-max(sqd, 0) / gamma)``, and a plain gather of the
-probabilities whose backward is PyTorch's own scatter, as the reference
-keeps XLA's there. The fused bf16 branch (kernels B6) is not ported yet.
+The smoothness loss has the reference's two branches. The plain one
+(weaksup.py:186-210): kNN with distances by kernel B12 (its plain version
+on CPU tensors), ``w = exp(-max(sqd, 0) / gamma)``, and a plain gather of
+the probabilities whose backward is PyTorch's own scatter, as the
+reference keeps XLA's there. The fused one (weaksup.py:152-185), which the
+bf16 fused model trains with on the card: the loss from exp-weighted
+neighbour sums of bf16 ``[P, |P|^2]`` (kernel B6's gather on a reused
+graph, or kernel B9's kNN + gather), whose backward is kernel B6's scatter
+(ops/wgather.py).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from weaksuppointcloudseg_tpu_torch.ops import wgather
 from weaksuppointcloudseg_tpu_torch.ops.knn import knn
 
 
@@ -64,24 +69,78 @@ def smooth_knn_laplacian(prob: torch.Tensor, x: torch.Tensor, *,
     return torch.mean(w * diff2)
 
 
+def smooth_knn_laplacian_fused(
+        prob: torch.Tensor, x: torch.Tensor, *, gamma: float = 1e-1,
+        k: int = 10, channels: Optional[Tuple[int, int]] = None,
+        fast: bool = False,
+        graph: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> torch.Tensor:
+    """The smoothness loss from weighted neighbour sums, without the [B, N,
+    k, K] neighbour tensor (weaksup.py:152-185):
+
+        sum_j w_j |P_n - P_j|^2 = (sum_j w_j)|P_n|^2 - 2 P_n.s1_n + s2_n,
+        s1_n = sum_j w_j P_j,   s2_n = sum_j w_j |P_j|^2,
+
+    with s = [s1, s2] the weighted sum of f = bf16([P, |P|^2]) (|P|^2
+    summed in f32 first). ``graph`` (idx [B, N, k'], sqd [B, N, k'],
+    nearest first, k' >= k): reuse its k-nearest prefix, w = exp(-max(sqd,
+    0) / gamma), and gather with kernel B6; else kNN + weights + gather in
+    one pass of kernel B9 on ``x``'s channels (f32). Per-point values are
+    clamped at 0 (bf16 rounding could make them negative); the mean is
+    divided by k * K. Gradients reach ``prob`` directly and through f (B6's
+    scatter); the graph, the weights and ``x`` get none. On CPU tensors the
+    kernels' plain versions run."""
+    n_cls = prob.shape[-1]
+    q = torch.sum(prob.square(), dim=-1)
+    f = torch.cat([prob, q[..., None]], dim=-1).to(torch.bfloat16)
+    if graph is not None:
+        if graph[0].shape[-1] < k:
+            raise ValueError(
+                f"precomputed graph has k'={graph[0].shape[-1]} neighbors but "
+                f"the loss needs k={k}; the k-nearest prefix reuse requires "
+                "k' >= k")
+        idx = graph[0].detach()[..., :k]
+        w = torch.exp(-torch.clamp_min(graph[1].detach()[..., :k], 0.0) / gamma)
+        s = wgather.weighted_gather_pre(idx, w, f)
+    else:
+        if channels is not None:
+            x = x[..., channels[0]:channels[1]]
+        _, s, w = wgather.knn_weighted_gather(x, f, k, gamma, fast=fast)
+    s1, s2 = s[..., :n_cls], s[..., n_cls]
+    per_point = w.sum(dim=-1) * q - 2.0 * torch.sum(prob * s1, dim=-1) + s2
+    return torch.mean(torch.clamp_min(per_point, 0.0)) / (k * n_cls)
+
+
 def total_weaksup_loss(logits: torch.Tensor, labels_onehot: torch.Tensor,
                        mask: torch.Tensor, x: torch.Tensor, *, gate,
                        siamese_weight: float = 1.0, smooth_gamma: float = 1e-1,
                        smooth_knn: int = 10,
                        smooth_channels: Optional[Tuple[int, int]] = None,
                        smooth_fast: bool = False,
+                       smooth_fused_bf16: bool = False,
+                       smooth_graph: Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]] = None,
                        compat_frozen_gate: bool = False
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-style loss seg + gate * (siamese + inexact + smooth), the gate a
     runtime 0/1 scalar (0 throughout with ``compat_frozen_gate``, the
-    released code's frozen constant). Returns (total, components)."""
+    released code's frozen constant). ``smooth_fused_bf16`` selects
+    :func:`smooth_knn_laplacian_fused`, which reuses ``smooth_graph`` where
+    one is given. Returns (total, components)."""
     prob = torch.softmax(logits, dim=-1)
     loss_seg = masked_softmax_ce(logits, labels_onehot, mask)
     loss_siam = siamese_weight * siamese_consistency(prob)
     loss_mil = mil_inexact(logits, labels_onehot)
-    loss_smooth = smooth_knn_laplacian(prob, x, gamma=smooth_gamma,
-                                       k=smooth_knn, channels=smooth_channels,
-                                       fast=smooth_fast)
+    smooth_kw = dict(gamma=smooth_gamma, k=smooth_knn,
+                     channels=smooth_channels, fast=smooth_fast)
+    if smooth_fused_bf16:
+        loss_smooth = smooth_knn_laplacian_fused(prob, x, graph=smooth_graph,
+                                                 **smooth_kw)
+    elif smooth_graph is not None:
+        raise ValueError("smooth_graph is an option of the fused smoothness "
+                         "loss (smooth_fused_bf16)")
+    else:
+        loss_smooth = smooth_knn_laplacian(prob, x, **smooth_kw)
     if compat_frozen_gate:
         gate = 0.0
     total = loss_seg + gate * (loss_siam + loss_mil + loss_smooth)

@@ -4,7 +4,10 @@ Counterpart of weaksuppointcloudseg_tpu/models/dgcnn.py. The parameters
 carry init_dgcnn_seg's names (``transform_net.tconv1.w``,
 ``adj_conv1.gamma``, ``agg_conv``, ``cat_embed``, ``seg_conv1``, ...,
 ``seg_out``), so the module's state_dict keys are the JAX pytree's key
-paths joined with dots (utils/checkpoint.py).
+paths joined with dots (utils/checkpoint.py). One class serves both
+presets: ShapeNet (transform net, category branch) and S3DIS (9 input
+channels, kNN on channels 6:9, no transform net, head convs whose BN
+population stats decay at the fixed ``head_bn_fixed_decay``).
 
 Which path runs is decided by the compute dtype, ``use_fused_knn`` and
 where the tensors live, in place of the reference's
@@ -21,8 +24,9 @@ where the tensors live, in place of the reference's
                                          kernels still to port (bf16
                                          without use_fused_knn: B14)
 
-The Full-style loss of a bf16 fused model needs the fused smoothness
-loss (kernels B6), which is not ported: train/steps.py raises for it.
+On the fused training route ``want_smooth_graph`` also returns the
+transform stage's kNN graph, which the Full-style smoothness loss reuses
+with kernels B6 (train/steps.py).
 
 Not ported here: static-graph mode and EdgeConv stages of three or more
 convs on the fused path (no preset has one). The reference's
@@ -94,26 +98,31 @@ class DGCNNSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor] = None,
                 n_valid: Optional[int] = None, *, training: bool = False,
-                bn_decay=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                bn_decay=None, generator: Optional[torch.Generator] = None,
+                want_smooth_graph: bool = False):
         """Logits [B, N, num_classes] f32 of points x [B, N, C].
 
         ``training``: batch-moment BN (the population stats in the BN
         buffers are updated in place with ``bn_decay``) and dropout with
         masks from ``generator``. ``n_valid`` (fused eval path only): rows
         >= n_valid of x are padding; they are never neighbors and never
-        win the max over points.
+        win the max over points. ``want_smooth_graph`` (fused training
+        route only): return ``(logits, (idx, sqd))``, see
+        :meth:`forward_fused`.
         """
         if x.device.type == "cuda":
             if self._cuda_route() == "fused":
                 return self.forward_fused(x, cat_onehot, n_valid,
                                           training=training,
                                           bn_decay=bn_decay,
-                                          generator=generator)
+                                          generator=generator,
+                                          want_smooth_graph=want_smooth_graph)
         elif x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         if n_valid is not None:
             raise ValueError("n_valid is a fused-path option")
+        if want_smooth_graph:
+            raise ValueError("want_smooth_graph is a fused-path option")
         return self.forward_plain(x, cat_onehot, training=training,
                                   bn_decay=bn_decay, generator=generator)
 
@@ -175,22 +184,32 @@ class DGCNNSeg(nn.Module):
     def forward_fused(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
                       n_valid: Optional[int] = None, *, training: bool = False,
                       bn_decay=None,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      want_smooth_graph: bool = False):
         """Composition over the fused blocks (reference fused_tpu branch,
-        dgcnn.py:193-326): on CUDA tensors each block launches its kernels,
+        dgcnn.py:175-365): on CUDA tensors each block launches its kernels,
         on CPU tensors it takes the kernels' plain versions. ``training``:
         the blocks' training forms (batch moments, BN buffers updated in
         place with ``bn_decay``) and the head's dropout from
-        ``generator``."""
+        ``generator``. ``want_smooth_graph`` (training with a transform
+        net): return ``(logits, (idx, sqd))``, the transform stage's
+        gradient-free kNN graph on the raw kNN-input coordinates (cast to
+        the compute dtype), for the smoothness loss to reuse."""
         cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
         if training and n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
+        if want_smooth_graph and not (training and cfg.use_transform_net):
+            raise ValueError("want_smooth_graph reuses the transform stage's "
+                             "graph: training with a transform net only")
         kw = dict(eps=eps, training=training, decay=bn_decay)
+        graph = None
         if cfg.use_transform_net:
             g = self._knn_input(x).to(dt).contiguous()
             transform = self.transform_net.forward_fused(
-                g, cfg.k, fast=cfg.knn_fast, n_valid=n_valid, **kw)
+                g, cfg.k, fast=cfg.knn_fast, n_valid=n_valid,
+                want_graph=want_smooth_graph, **kw)
+            if want_smooth_graph:
+                transform, graph = transform
             x = self._apply_transform(x, transform)
         feat = x.to(dt).contiguous()
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
@@ -214,8 +233,9 @@ class DGCNNSeg(nn.Module):
         concat = torch.cat(outs, dim=-1)
         global_feat = layers.apply_conv_bn_relu_nmax(
             self.agg_conv, concat, n_valid=n_valid, **kw)
-        return self._head(global_feat, concat, cat_onehot, generator=generator,
-                          **kw)
+        logits = self._head(global_feat, concat, cat_onehot,
+                            generator=generator, **kw)
+        return (logits, graph) if want_smooth_graph else logits
 
     @staticmethod
     def _apply_transform(x, transform):
@@ -232,6 +252,11 @@ class DGCNNSeg(nn.Module):
                 raise ValueError("model was built with a category branch")
             cat = layers.apply_conv(self.cat_embed, cat_onehot.to(dt), **kw)
             global_feat = torch.cat([global_feat, cat], dim=-1)
+        # the head convs' BN stats decay at the fixed rate where the preset
+        # sets one (S3DIS, dgcnn.py:170-172); the category branch above
+        # keeps the scheduled one
+        if cfg.head_bn_fixed_decay is not None:
+            kw["decay"] = cfg.head_bn_fixed_decay
         # first head conv: the global feature is constant over N, so its
         # product runs once per sample and broadcasts (layers.apply_conv_bcast)
         h = layers.apply_conv_bcast(self.seg_conv1, global_feat.to(dt), concat,

@@ -267,14 +267,16 @@ class _EdgeConvStageTrain(torch.autograd.Function):
     dbeta = a1; ``g_src`` gets none.
 
     Outputs (out [B,N,C2], mean1, var1, mean2, var2); the moments feed the
-    BN buffer updates only."""
+    BN buffer updates only. With ``want_graph`` B1 also emits the selected
+    squared distances, and the stage's kNN graph (idx int32 [B,N,k], sqd
+    f32 [B,N,k], nearest first, gradient-free) follows the moments."""
 
     @staticmethod
     def forward(ctx, f, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, g_src,
-                k, eps, fast):
+                k, eps, fast, want_graph=False):
         u, v = uv_factor(w1, b1, f)
-        idx, y1, mom1 = knn_edge(g_src.detach().contiguous(), v, u, k,
-                                 fast=fast)
+        idx, y1, mom1, *sqd = knn_edge(g_src.detach().contiguous(), v, u, k,
+                                       fast=fast, with_values=want_graph)
         r = y1.shape[0] * y1.shape[1] * y1.shape[2]
         mean1, var1, s1, t1, inv1 = _stage_consts(mom1, r, gamma1, beta1, eps)
         ymax, amax, ymin, amin, mom2 = conv_minmax(
@@ -284,8 +286,9 @@ class _EdgeConvStageTrain(torch.autograd.Function):
         out = torch.relu(ysel.float() * s2 + t2).to(f.dtype)
         ctx.save_for_backward(idx, y1, ysel, asel, mean1, inv1, mean2, inv2,
                               w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, f)
-        ctx.mark_non_differentiable(mean1, var1, mean2, var2)
-        return out, mean1, var1, mean2, var2
+        graph = (idx, sqd[0]) if want_graph else ()
+        ctx.mark_non_differentiable(mean1, var1, mean2, var2, *graph)
+        return (out, mean1, var1, mean2, var2, *graph)
 
     @staticmethod
     def backward(ctx, dout, *_):
@@ -312,7 +315,7 @@ class _EdgeConvStageTrain(torch.autograd.Function):
         dv, du = scatter_bn_bwd(idx, y1, dz1, s1, alpha1, beta1v, n_)
         df, dw1, db1 = _uv_grads(w1, f, du, dv)
         return (df if ctx.needs_input_grad[0] else None, dw1, db1, a2p, a1p,
-                dw2, db2, a2, a1, None, None, None, None)
+                dw2, db2, a2, a1, None, None, None, None, None)
 
 
 class _EdgeConvStage1Train(torch.autograd.Function):
@@ -384,21 +387,28 @@ def apply_edge_conv_stage_fused(p1: Conv, p2: Conv, f: torch.Tensor,
                                 g_src: torch.Tensor, k: int, *,
                                 eps: float = BN_EPS, fast: bool = False,
                                 n_valid: Optional[int] = None,
-                                training: bool = False,
-                                decay=None) -> torch.Tensor:
+                                training: bool = False, decay=None,
+                                want_graph: bool = False):
     """Whole two-conv EdgeConv stage (layers.py:817-907). Eval: kNN +
     conv1 (B1) and BN1 + relu + conv2 + BN2 + relu + k-max (B7). Training:
     :class:`_EdgeConvStageTrain` (B1, B2; backward B3, B4), with both BN
-    layers' population stats updated in place. f, g_src: bf16."""
+    layers' population stats updated in place. f, g_src: bf16.
+
+    ``want_graph`` (training only): return ``(out, (idx, sqd))``, the
+    stage's gradient-free kNN graph on ``g_src`` beside its output, for
+    the smoothness loss to reuse (losses/weaksup.py)."""
     if training:
         if n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
-        out, mean1, var1, mean2, var2 = _EdgeConvStageTrain.apply(
+        out, mean1, var1, mean2, var2, *graph = _EdgeConvStageTrain.apply(
             f, p1.w, p1.b, p1.gamma, p1.beta, p2.w, p2.b, p2.gamma, p2.beta,
-            g_src, k, eps, fast)
+            g_src, k, eps, fast, want_graph)
         _update_bn(p1, mean1, var1, decay)
         _update_bn(p2, mean2, var2, decay)
-        return out
+        return (out, tuple(graph)) if want_graph else out
+    if want_graph:
+        raise ValueError("want_graph is a training option (the graph feeds "
+                         "the smoothness loss)")
     u, v = uv_factor(p1.w, p1.b, f)
     _, y1, _ = knn_edge(g_src.contiguous(), v, u, k, fast=fast,
                         n_valid=n_valid)

@@ -58,16 +58,20 @@ class TransformNet(nn.Module):
 
     def forward_fused(self, g: torch.Tensor, k: int, *, eps: float,
                       fast: bool, n_valid: Optional[int] = None,
-                      training: bool = False, decay=None) -> torch.Tensor:
+                      training: bool = False, decay=None,
+                      want_graph: bool = False):
         """Fused path over the kernels: tconv1+tconv2+k-max as one
         EdgeConv stage on the bf16 coordinates ``g`` (B1 + B7 at eval; B1 +
         B2, backward B3 + B4, in training), then tconv3 + max over N (B8;
-        B5 in training) (transform_net.py:65-97). ``g`` is data: no
-        gradient reaches it."""
+        B5 in training) (transform_net.py:55-108). ``g`` is data: no
+        gradient reaches it. ``want_graph`` (training): return
+        ``(transform, (idx, sqd))`` with the stage's kNN graph on ``g``."""
         kw = dict(eps=eps, training=training, decay=decay)
         net = layers.apply_edge_conv_stage_fused(
             self.tconv1, self.tconv2, g, g, k, fast=fast, n_valid=n_valid,
-            **kw)
+            want_graph=want_graph, **kw)
+        net, graph = net if want_graph else (net, None)
         net = layers.apply_conv_bn_relu_nmax(self.tconv3, net,
                                              n_valid=n_valid, **kw)
-        return self._head(net, **kw)
+        transform = self._head(net, **kw)
+        return (transform, graph) if want_graph else transform

@@ -29,7 +29,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "knn_edge_launch": [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P,
@@ -43,6 +43,9 @@ SIGNATURES = {
     "conv_kmax_bwd_launch": [P] * 10 + [I] * 4 + [P] * 5,
     "conv_nmax_bwd_launch": [P] * 7 + [I] * 5 + [P] * 5,
     "scatter_bn_bwd_launch": [P] * 8 + [I] * 5 + [P] * 3,
+    "wgather_pre_launch": [P, P, P, I, I, I, I, P, P],
+    "scatter_add_weighted_launch": [P, P, P, I, I, I, I, I, P, P],
+    "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -69,6 +69,19 @@ def select_ref(d: torch.Tensor, k: int, *, fast: bool,
     return idx[..., :k].int(), sqd[..., :k]
 
 
+def check_rows_launch(what: str, b: int, n: int, c: int) -> None:
+    """Raise for a shape the distance-rows kernel (ops/csrc/knn_rows.cuh,
+    kernels B12 and B9) cannot launch: a block keeps 8 full distance rows
+    and a 256-point tile of C-channel points in shared memory, and the grid
+    holds the batch in its y dimension."""
+    if b > 65535:
+        raise ValueError(f"{what}: batch {b} exceeds the grid limit")
+    stride = (c + 3) // 4 * 4 + 4
+    if 4 * (264 * stride + 8 * n) > _SMEM_LIMIT:
+        raise ValueError(f"{what}: N={n}, C={c} exceeds the kernel's shared "
+                         "memory")
+
+
 def knn_ref(x: torch.Tensor, k: int, *, fast: bool = False,
             with_values: bool = False
             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -107,11 +120,7 @@ def knn(x: torch.Tensor, k: int, *, fast: bool = False,
     _build.check_operand(x, "x", torch.float32, dev, (b, n, c))
     if not 1 <= k <= n:
         raise ValueError(f"knn: k={k} must be in [1, N={n}]")
-    if b > 65535:
-        raise ValueError(f"knn: batch {b} exceeds the grid limit")
-    stride = (c + 3) // 4 * 4 + 4
-    if 4 * (264 * stride + 8 * n) > _SMEM_LIMIT:
-        raise ValueError(f"knn: N={n}, C={c} exceeds the kernel's shared memory")
+    check_rows_launch("knn", b, n, c)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     sqd = (torch.empty((b, n, k), dtype=torch.float32, device=dev)
            if with_values else None)

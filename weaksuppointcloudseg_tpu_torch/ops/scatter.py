@@ -7,7 +7,11 @@ scatter_pallas.py:
 - B4 ``scatter_bn_bwd`` (``ops/csrc/scatter_bn.cu``,
   scatter_bn_bwd_pallas): the same scatter of a batch-norm cotangent
   assembled on the fly from the saved pre-BN activations, the backward of
-  the fused EdgeConv stages' first conv (models/layers.py).
+  the fused EdgeConv stages' first conv (models/layers.py);
+- B6 ``scatter_add_weighted`` (``ops/csrc/scatter_w.cu``,
+  scatter_add_weighted_pallas): ``out[b, idx[b, p, j]] += w[b, p, j] *
+  ct[b, p]``, one cotangent row shared by the k slots, the backward of the
+  weighted gathers of the smoothness loss (ops/wgather.py).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and takes its plain
 version (``*_ref``) on CPU tensors; any other device raises. The kernels
@@ -132,5 +136,44 @@ def scatter_bn_bwd(idx: torch.Tensor, y: torch.Tensor, big, sv: torch.Tensor,
     return dv, du
 
 
+def scatter_add_weighted_ref(idx: torch.Tensor, w: torch.Tensor,
+                             ct: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_add_weighted` (same
+    contract)."""
+    return scatter_add_ref(idx, w[..., None] * ct[:, :, None, :].float(), n)
+
+
+def scatter_add_weighted(idx: torch.Tensor, w: torch.Tensor, ct: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """``out[b, idx[b, p, j]] += w[b, p, j] * ct[b, p]`` -> f32 [B, n, C].
+
+    Args:
+      idx: int32 [B, P, k] target rows, each in [0, n).
+      w: f32 [B, P, k] per-slot weights.
+      ct: f32 [B, P, C] contributions, shared by the k slots.
+      n: rows of the output.
+    """
+    if ct.device.type == "cpu":
+        return scatter_add_weighted_ref(idx, w, ct, n)
+    if ct.device.type != "cuda":
+        raise ValueError(f"scatter_add_weighted: unsupported device {ct.device}")
+    b, p, k = idx.shape
+    c = ct.shape[-1]
+    dev = ct.device
+    _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
+    _build.check_operand(w, "w", torch.float32, dev, (b, p, k))
+    _build.check_operand(ct, "ct", torch.float32, dev, (b, p, c))
+    out = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.scatter_add_weighted_launch(
+            idx.data_ptr(), w.data_ptr(), ct.data_ptr(), b, p, k, n, c,
+            out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(code, "scatter_add_weighted")
+    scatter_add_weighted.launches += 1
+    return out
+
+
 scatter_add.launches = 0  # kernel launches since the last reset
 scatter_bn_bwd.launches = 0
+scatter_add_weighted.launches = 0

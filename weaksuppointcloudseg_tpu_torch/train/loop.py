@@ -1,13 +1,14 @@
-"""ShapeNet trainer. Counterpart of weaksuppointcloudseg_tpu/train/loop.py::
-ShapeNetTrainer (ShapeNet_DGCNN_trainer.py: TrainOneEpoch_Full,
-EvalOneEpoch_Full, Test, SaveCheckPoint, RestoreCheckPoint): host-side
-batch assembly in numpy (SampIndex masks, Siamese pairs, one-hot labels),
-the train and eval steps on the device, per-shape IoU on the host.
+"""Trainers for ShapeNet and S3DIS. Counterpart of weaksuppointcloudseg_tpu/
+train/loop.py (ShapeNet_DGCNN_trainer.py and S3DIS_DGCNN_trainer.py:
+TrainOneEpoch_Full, EvalOneEpoch_Full, Test, SaveCheckPoint,
+RestoreCheckPoint): host-side batch assembly in numpy (SampIndex masks,
+Siamese pairs, one-hot labels), the train and eval steps on the device,
+per-shape IoU (ShapeNet) or the global confusion mIoU (S3DIS) on the host.
 
 The model runs on ``device``, the card by default; a caller that wants the
 CPU says so (``device="cpu"``). Not ported yet: the background prefetch
-thread, resuming Adam state, data parallelism and the S3DIS trainer
-(ROADMAP).
+thread, resuming Adam state, data parallelism and the S3DIS test path
+(``S3DISTrainer.test``, ``room_label_prop``; ROADMAP).
 """
 
 from __future__ import annotations
@@ -19,8 +20,13 @@ import torch
 
 from weaksuppointcloudseg_tpu_torch.configs import ExperimentConfig
 from weaksuppointcloudseg_tpu_torch.data import augment, sampling
+from weaksuppointcloudseg_tpu_torch.data import s3dis as s3dis_data
 from weaksuppointcloudseg_tpu_torch.data import shapenet as shapenet_data
-from weaksuppointcloudseg_tpu_torch.metrics.iou import category_biased_argmax, eval_iou
+from weaksuppointcloudseg_tpu_torch.metrics.iou import (
+    ConfusionAccumulator,
+    category_biased_argmax,
+    eval_iou,
+)
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.propagate.label_prop import propagate_batch
 from weaksuppointcloudseg_tpu_torch.train.state import Adam
@@ -36,18 +42,13 @@ from weaksuppointcloudseg_tpu_torch.utils.checkpoint import (
 from weaksuppointcloudseg_tpu_torch.utils.tools import onehot_encode, resolve_device
 
 
-class ShapeNetTrainer:
-    """ShapeNet part segmentation: training, validation and test.
+class _TrainerBase:
+    """Model, optimizer, steps, random streams, the epoch loop and
+    checkpoints, shared by the two trainers. A subclass sets ``pts_idx``
+    (the labelled points, None: all) and provides ``_assemble``."""
 
-    ``dataset`` provides ``meta`` (the category/part maps) and, for
-    training and validation, ``batches`` (data/shapenet.py::
-    ShapeNetDataset); the test path needs only ``meta``, so a
-    ShapeNetTestSet will do. ``pts_idx_list`` [num_train_samples,
-    n_labelled] are the labelled points (None: every point labelled).
-    """
-
-    def __init__(self, cfg: ExperimentConfig, dataset, pts_idx_list=None, *,
-                 seed: int = 0, device="cuda", ckpt_dir: Optional[str] = None):
+    def __init__(self, cfg: ExperimentConfig, *, seed: int = 0,
+                 device="cuda", ckpt_dir: Optional[str] = None):
         self.cfg = cfg
         self.style = cfg.train.style
         self.rampup = cfg.train.rampup
@@ -63,12 +64,87 @@ class ShapeNetTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + 1)
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.num_classes = cfg.model.num_classes
+        self.epoch = 0
+
+    def _mask(self, b, full_mask: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """(mask [B, N], valid [B]): the labelled points of the batch's real
+        samples; padded tail rows must not enter the masked-CE
+        denominator."""
+        n = b.data.shape[1]
+        if full_mask or self.pts_idx is None:
+            mask = np.ones((b.data.shape[0], n), np.float32)
+        else:
+            mask = sampling.indices_to_mask(self.pts_idx, b.sample_ids, n)
+        valid = np.zeros(b.data.shape[0], np.float32)
+        valid[:b.valid] = 1.0
+        return mask * valid[:, None], valid
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def _run_train_epoch(self, batches, epoch: int) -> Dict[str, float]:
+        """The steps of one epoch over ``batches`` (the gate and the pair
+        augmentation on from the rampup epoch); returns the metrics averaged
+        over steps, weighted by real samples. The per-step metrics stay on
+        the device until the epoch ends and are fetched in one transfer."""
+        siamese = self.style == "Full"
+        gate = 1.0 if epoch >= self.rampup else 0.0
+        augment_pairs = siamese and epoch >= self.rampup
+        steps, counts = [], []
+        for b in batches:
+            batch = self._assemble(b, siamese=siamese,
+                                   augment_pairs=augment_pairs, full_mask=False)
+            steps.append(self.train_step(self._to_device(batch), gate,
+                                         self.generator))
+            counts.append(b.valid)
+        self.epoch = epoch + 1
+        if not steps:
+            return {}
+        dev_keys = [k for k, v in steps[0].items() if torch.is_tensor(v)]
+        stacked = torch.stack([torch.stack([m[k] for k in dev_keys])
+                               for m in steps]).cpu().numpy()  # one sync
+        w = np.asarray(counts, np.float64)
+        out = {k: float(np.sum(stacked[:, i] * w) / w.sum())
+               for i, k in enumerate(dev_keys)}
+        for k in steps[0]:
+            if k not in out:
+                out[k] = float(np.sum(np.asarray([m[k] for m in steps]) * w)
+                               / w.sum())
+        return out
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save_checkpoint(self, metric: float) -> Optional[str]:
+        """Format-v2 ``.npz`` of the parameters and BN stats (what the test
+        CLI restores); Adam's moments are not written."""
+        if self.ckpt is None:
+            return None
+        return self.ckpt.save(self.model, self.epoch, metric, step=self.opt.step)
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Load a format-v2 ``.npz`` written by either package."""
+        self.epoch = load_jax_checkpoint(path, self.model)
+
+
+class ShapeNetTrainer(_TrainerBase):
+    """ShapeNet part segmentation: training, validation and test.
+
+    ``dataset`` provides ``meta`` (the category/part maps) and, for
+    training and validation, ``batches`` (data/shapenet.py::
+    ShapeNetDataset); the test path needs only ``meta``, so a
+    ShapeNetTestSet will do. ``pts_idx_list`` [num_train_samples,
+    n_labelled] are the labelled points (None: every point labelled).
+    """
+
+    def __init__(self, cfg: ExperimentConfig, dataset, pts_idx_list=None,
+                 **kw):
+        super().__init__(cfg, **kw)
         self.ds = dataset
         self.meta = dataset.meta
         self.pts_idx = pts_idx_list
-        self.num_classes = cfg.model.num_classes
         self.num_categories = cfg.model.num_categories
-        self.epoch = 0
         # category -> its part ids, [num_categories, num_classes], for the
         # reference's category-biased train argmax
         self._cat_part_mask = np.zeros(
@@ -81,16 +157,8 @@ class ShapeNetTrainer:
     def _assemble(self, b: shapenet_data.Batch, *, siamese: bool,
                   augment_pairs: bool, full_mask: bool) -> Dict[str, np.ndarray]:
         """Host-side batch (loop.py:185-216), on the reference's draws."""
-        n = b.data.shape[1]
-        if full_mask or self.pts_idx is None:
-            mask = np.ones((b.data.shape[0], n), np.float32)
-        else:
-            mask = sampling.indices_to_mask(self.pts_idx, b.sample_ids, n)
+        mask, valid = self._mask(b, full_mask)
         data = b.data
-        valid = np.zeros(b.data.shape[0], np.float32)
-        valid[:b.valid] = 1.0
-        # padded tail rows must not enter the masked-CE denominator
-        mask = mask * valid[:, None]
         if siamese:
             aug = augment.shapenet_augment if augment_pairs else None
             data = augment.make_siamese_batch(data, self.np_rng, aug)
@@ -111,43 +179,15 @@ class ShapeNetTrainer:
             "valid": valid,
         }
 
-    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
-
     # -- epochs -------------------------------------------------------------
 
     def train_epoch(self, epoch: Optional[int] = None) -> Dict[str, float]:
         """One training epoch over the shuffled train split (drop-last);
-        returns the metrics averaged over steps, weighted by real samples.
-        The per-step metrics stay on the device until the epoch ends and
-        are fetched in one transfer."""
+        returns the metrics averaged over steps, weighted by real samples."""
         epoch = self.epoch if epoch is None else epoch
-        siamese = self.style == "Full"
-        gate = 1.0 if epoch >= self.rampup else 0.0
-        augment_pairs = siamese and epoch >= self.rampup
-        steps, counts = [], []
-        for b in self.ds.batches("train", self.cfg.train.batch_size,
-                                 shuffle=True, drop_last=True, rng=self.np_rng):
-            batch = self._assemble(b, siamese=siamese,
-                                   augment_pairs=augment_pairs, full_mask=False)
-            steps.append(self.train_step(self._to_device(batch), gate,
-                                         self.generator))
-            counts.append(b.valid)
-        self.epoch = epoch + 1
-        if not steps:
-            return {}
-        dev_keys = [k for k, v in steps[0].items() if torch.is_tensor(v)]
-        stacked = torch.stack([torch.stack([m[k] for k in dev_keys])
-                               for m in steps]).cpu().numpy()  # one sync
-        w = np.asarray(counts, np.float64)
-        out = {k: float(np.sum(stacked[:, i] * w) / w.sum())
-               for i, k in enumerate(dev_keys)}
-        for k in steps[0]:
-            if k not in out:
-                out[k] = float(np.sum(np.asarray([m[k] for m in steps]) * w)
-                               / w.sum())
-        return out
+        return self._run_train_epoch(
+            self.ds.batches("train", self.cfg.train.batch_size, shuffle=True,
+                            drop_last=True, rng=self.np_rng), epoch)
 
     def evaluate(self) -> Tuple[float, float, float, np.ndarray]:
         """Validation pass with population BN stats: (loss, acc,
@@ -178,19 +218,6 @@ class ShapeNetTrainer:
             float(np.mean(ious)) if ious else 0.0,
             pershape,
         )
-
-    # -- checkpoints --------------------------------------------------------
-
-    def save_checkpoint(self, metric: float) -> Optional[str]:
-        """Format-v2 ``.npz`` of the parameters and BN stats (what the test
-        CLI restores); Adam's moments are not written."""
-        if self.ckpt is None:
-            return None
-        return self.ckpt.save(self.model, self.epoch, metric, step=self.opt.step)
-
-    def restore_checkpoint(self, path: str) -> None:
-        """Load a format-v2 ``.npz`` written by either package."""
-        self.epoch = load_jax_checkpoint(path, self.model)
 
     def test(self, testset: shapenet_data.ShapeNetTestSet, *,
              use_label_prop: Optional[bool] = None, num_points: int = 3000,
@@ -285,3 +312,64 @@ class ShapeNetTrainer:
             "accuracy": float(np.mean(accs)),
             "per_category_iou": np.where(seen, pershape, np.nan),
         }
+
+
+class S3DISTrainer(_TrainerBase):
+    """S3DIS semantic segmentation: training and validation
+    (S3DIS_DGCNN_trainer.py). ``dataset`` is a data/s3dis.py::S3DISDataset;
+    the blocks of rooms in Area ``test_area`` are the validation split.
+    ``pts_idx_list`` holds each block's labelled points (a [blocks, n]
+    array, or one index array per block for the one-point-per-class
+    scheme; None: every point labelled)."""
+
+    def __init__(self, cfg: ExperimentConfig, dataset: s3dis_data.S3DISDataset,
+                 pts_idx_list=None, test_area: int = 5, **kw):
+        super().__init__(cfg, **kw)
+        self.ds = dataset
+        self.pts_idx = pts_idx_list
+        self.test_area = test_area
+        self.train_idx, self.val_idx = dataset.split_indices(test_area)
+
+    def _assemble(self, b: s3dis_data.Batch, *, siamese: bool,
+                  augment_pairs: bool, full_mask: bool) -> Dict[str, np.ndarray]:
+        """Host-side batch (loop.py:397-424), on the reference's draws."""
+        mask, valid = self._mask(b, full_mask)
+        data, seg = b.data, b.seg
+        if siamese:
+            aug = augment.s3dis_augment if augment_pairs else None
+            data = augment.make_siamese_batch(data, self.np_rng, aug)
+            mask = augment.interleave_duplicate(mask)
+            seg = augment.interleave_duplicate(seg)
+            valid = augment.interleave_duplicate(valid)
+        return {
+            "data": data.astype(np.float32),
+            "seg": seg.astype(np.int64),
+            "seg_onehot": onehot_encode(seg, self.num_classes),
+            "mask": mask,
+            "valid": valid,
+        }
+
+    def train_epoch(self, epoch: Optional[int] = None) -> Dict[str, float]:
+        """One training epoch over the shuffled train blocks (drop-last)."""
+        epoch = self.epoch if epoch is None else epoch
+        return self._run_train_epoch(
+            self.ds.batches(self.train_idx, self.cfg.train.batch_size,
+                            shuffle=True, drop_last=True, rng=self.np_rng),
+            epoch)
+
+    def evaluate(self) -> Tuple[float, float, float, np.ndarray]:
+        """Validation over the held-out area with population BN stats:
+        (loss, acc, mIoU, per-class IoU [num_classes]) from one global
+        confusion count (S3DIS_DGCNN_trainer.py:412-481)."""
+        acc = ConfusionAccumulator(self.num_classes)
+        losses, loss_w = [], []
+        for b in self.ds.batches(self.val_idx, self.cfg.train.batch_size):
+            batch = self._assemble(b, siamese=False, augment_pairs=False,
+                                   full_mask=True)
+            prob, loss = self.eval_step(self._to_device(batch))
+            losses.append(float(loss))
+            loss_w.append(b.valid)
+            acc.update(prob.argmax(-1).cpu().numpy()[:b.valid],
+                       b.seg[:b.valid])
+        return (float(np.average(losses, weights=loss_w)) if losses else 0.0,
+                acc.accuracy, acc.miou, acc.iou)

@@ -32,25 +32,27 @@ from weaksuppointcloudseg_tpu_torch.ops.schedules import (
 from weaksuppointcloudseg_tpu_torch.train.state import Adam
 
 
-def check_loss_route(cfg: ExperimentConfig, style: str,
-                     device: torch.device) -> None:
-    """Raise where the training loss needs kernels not ported yet.
-
-    A bf16 model with ``use_fused_knn`` runs the fused blocks on the card,
-    and the reference pairs them with the fused smoothness loss over the
-    weighted gather and its scatter (kernels B6, losses/weaksup.py:152-185,
-    steps.py:73-85). Running the f32 smoothness loss (B12) under that model
-    instead would silently train something the reference never does, so a
-    Full-style loss there raises; Plain style needs no B6."""
+def fused_route(cfg: ExperimentConfig, device) -> bool:
+    """True where training runs the fused blocks and the fused smoothness
+    loss: a bf16 model with ``use_fused_knn`` on the card (the reference's
+    one fused gate, dgcnn.py:141-145 and steps.py:101-103). On the CPU the
+    plain composition runs, as the reference's off the TPU."""
     m = cfg.model
-    if (style == "Full" and torch.device(device).type == "cuda"
-            and m.compute_dtype == "bfloat16" and m.use_fused_knn):
-        raise NotImplementedError(
-            "the Full-style loss of a bfloat16 fused model needs the fused "
-            "smoothness loss over kernels B6 (edgeconv_pallas.py::"
-            "_wgather_pre_impl, scatter_pallas.py::"
-            "scatter_add_weighted_pallas), which are not ported yet "
-            "(ROADMAP); train -sty Plain, or in float32")
+    return bool(torch.device(device).type == "cuda"
+                and m.compute_dtype == "bfloat16" and m.use_fused_knn)
+
+
+def smooth_graph_reusable(cfg: ExperimentConfig, device) -> bool:
+    """True when the Full-style smoothness loss can reuse the fused
+    transform stage's kNN graph instead of running its own selection
+    (steps.py:73-85): the fused route with a transform net whose graph lives
+    on the coordinates the loss uses (no ``knn_channels`` or
+    ``smooth_channels``: both span the raw xyz) and whose k covers the
+    loss's k-nearest prefix."""
+    m, w = cfg.model, cfg.weaksup
+    return bool(fused_route(cfg, device) and m.use_transform_net
+                and w.smooth_knn <= m.k and m.knn_channels is None
+                and w.smooth_channels is None)
 
 
 def loss_fn(model: DGCNNSeg, batch: Dict[str, torch.Tensor], *,
@@ -58,10 +60,16 @@ def loss_fn(model: DGCNNSeg, batch: Dict[str, torch.Tensor], *,
             generator: Optional[torch.Generator] = None):
     """Training forward + loss (steps.py:88-124). Returns (total,
     components incl. ``total``, logits); the model's BN buffers hold the
-    new population stats afterwards."""
-    check_loss_route(cfg, style, batch["data"].device)
-    logits = model(batch["data"], batch.get("cat_onehot"), training=True,
-                   bn_decay=bn_decay, generator=generator)
+    new population stats afterwards. On the fused route the Full-style
+    smoothness loss is the fused one, over the transform stage's reused
+    graph (ShapeNet) or its own kNN (S3DIS)."""
+    device = batch["data"].device
+    fused = fused_route(cfg, device)
+    reuse_graph = style == "Full" and smooth_graph_reusable(cfg, device)
+    out = model(batch["data"], batch.get("cat_onehot"), training=True,
+                bn_decay=bn_decay, generator=generator,
+                want_smooth_graph=reuse_graph)
+    logits, graph = out if reuse_graph else (out, None)
     if style == "Full":
         w = cfg.weaksup
         total, components = total_weaksup_loss(
@@ -69,6 +77,7 @@ def loss_fn(model: DGCNNSeg, batch: Dict[str, torch.Tensor], *,
             gate=gate, siamese_weight=w.siamese_weight,
             smooth_gamma=w.smooth_gamma, smooth_knn=w.smooth_knn,
             smooth_channels=w.smooth_channels, smooth_fast=cfg.model.knn_fast,
+            smooth_fused_bf16=fused, smooth_graph=graph,
             compat_frozen_gate=w.compat_frozen_gate)
     else:
         total = masked_softmax_ce(logits, batch["seg_onehot"], batch["mask"])
