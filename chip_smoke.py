@@ -38,7 +38,21 @@ Phases:
      x 2 x 4096 points) on an S3DIS-format block split the script writes
      (Area_5 for validation): launch counts of B1-B5, B9, B6's scatter and
      B7/B8, finite losses and mIoU, ``s3dis_full_train_throughput``, peak
-     memory, device time by kernel, idle share.
+     memory, device time by kernel, idle share;
+  8. the S3DIS test path through ``cli.test_s3dis`` at full width (bf16,
+     ``knn_fast``, -bs 14) on a raw test area the script writes (two
+     surface-sampled rooms: 8 x 4 x 3 m, 32 blocks = 131,072 room-LP
+     points, and 5 x 5 x 3 m, 25 blocks padded to 32), per-block LP (B1,
+     B7, B8 launch; B10 must not) and ``--RoomLP`` (B10 launches once for
+     the degrees and once per CG iteration, per room): finite mIoU, the
+     .mat files; then bench.py's ``s3dis_eval_forward_throughput``,
+     ``s3dis_test_e2e_throughput`` (14 x 4096 points) and
+     ``s3dis_room_lp_131072`` with its CG iterations, peak memory, device
+     time by kernel, and the room LP against the CPU on 4096 points.
+
+Phase 2 also holds B10 and B17 (the Gaussian-affinity matvec) to their
+plain versions at that room LP's shape, with the share of tile pairs
+skipped.
 
 Prints a JSON line of per-kernel results, then the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
@@ -105,6 +119,36 @@ def gram_pairs(b: int, n: int) -> float:
     """Dot products a self-distance kNN needs: the Gram x.x^T of each of
     b clouds of n points is symmetric, so n (n + 1) / 2 per cloud."""
     return b * n * (n + 1) / 2
+
+
+def affinity_flops(b: int, n: int, f: int, k: int, ordered: float) -> float:
+    """Operations of one Gaussian-affinity matvec (B10/B17) over ``ordered``
+    computed (i, j) pairs of b samples of n points: the Gram (2f), the
+    distance, clamp and exp (4) once per unordered pair, the diagonal
+    included, and the apply (2k) over every ordered pair."""
+    return (ordered + b * n) / 2 * (2.0 * f + 4) + ordered * 2.0 * k
+
+
+def bench_room(n: int, seed: int = 0):
+    """bench.py::time_room_lp's room: n points of an 8 x 8 x 3 m room, 70%
+    on the floor, the ceiling and walls every 2 m, the rest in the volume;
+    rgb uniform; probabilities a softmax of 3x standard-normal logits of 13
+    classes. numpy (xyz [1, n, 3], g [1, n, 13], rgb [1, n, 3]) f32."""
+    rng = np.random.default_rng(seed)
+    room = np.array([8.0, 8.0, 3.0], np.float32)
+    n_surf = int(n * 0.7)
+    xy = rng.uniform(0, 1, (n_surf, 2)) * room[:2]
+    which = rng.integers(0, 4, n_surf)
+    z = np.where(which == 0, 0.0, np.where(which == 1, room[2],
+                 rng.uniform(0, room[2], n_surf)))
+    x = np.where(which == 2, np.round(xy[:, 0] / 2) * 2, xy[:, 0])
+    surf = np.stack([x, xy[:, 1], z], -1)
+    interior = rng.uniform(0, 1, (n - n_surf, 3)) * room
+    xyz = np.concatenate([surf, interior]).astype(np.float32)[None]
+    rgb = rng.uniform(0, 1, (1, n, 3)).astype(np.float32)
+    logits = rng.standard_normal((1, n, 13)).astype(np.float32) * 3.0
+    g = np.exp(logits - logits.max(-1, keepdims=True))
+    return xyz, (g / g.sum(-1, keepdims=True)).astype(np.float32), rgb
 
 
 def nbytes(*tensors) -> int:
@@ -877,6 +921,87 @@ def check_knn_wgather(gen, report):
         *times[True]))
 
 
+LN, LK = 131072, 13  # one room of bench.py's s3dis_room_lp_131072, 13 classes
+
+
+def room_features(xyz, rgb):
+    """The room LP's features on the card: sqrt(1e3) xyz | sqrt(10) rgb,
+    centred, Morton-sorted (propagate/label_prop.py), [1, 6, N]."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import affinity
+
+    x = torch.from_numpy(xyz).cuda()
+    feat = torch.cat([x * 1e3 ** 0.5, torch.from_numpy(rgb).cuda() * 10 ** 0.5], -1)
+    feat = feat - feat.mean(1, keepdim=True)
+    order = affinity.morton_order(x).long()[0]
+    return feat[:, order].transpose(1, 2).contiguous()
+
+
+def check_affinity(gen, report):
+    """B10 and B17 against their plain versions (every pair, row tiles of
+    cuBLAS f32) at one room of bench.py's s3dis_room_lp_131072 (B=1,
+    N=131072, F=6, K=13), Morton-sorted as the room LP sorts it.
+    Tolerance per element: twice the Gram's f32 cancellation bound
+    (label_prop.check_gram_cancellation: 4 ulps of max |f|^2, which
+    exp(-d^2) turns into that relative error on each affinity; kernel and
+    plain version each round their own Gram) plus 1e-5 of sum_j W_ij |u_j|
+    (expf's 2 ulp, another summation order), plus exp(-30) sum |u| for the
+    skipped pairs. Prints the share of tile pairs skipped (must be > 0)
+    and the kernel without skipping."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import affinity
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
+
+    xyz, _, rgb = bench_room(LN)
+    feat_t = room_features(xyz, rgb)
+    ut = torch.randn((1, LK, LN), generator=gen, device="cuda")
+    bound_rel = label_prop.check_gram_cancellation(feat_t.transpose(1, 2))
+    mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE, 30.0)
+    ordered = float(mask.sum().item()) * affinity.TILE ** 2
+    skipped = 1.0 - mask.float().mean().item()
+    require(skipped > 0, "room LP: no tile pair skipped")
+    for name, transposed in (("affinity_matvec_t (B10)", True),
+                             ("affinity_matvec (B17)", False)):
+        if transposed:
+            feat, u = feat_t, ut
+            fn, ref = affinity.affinity_matvec_t, affinity.affinity_matvec_t_ref
+        else:
+            feat, u = feat_t.transpose(1, 2).contiguous(), ut.transpose(1, 2).contiguous()
+            fn, ref = affinity.affinity_matvec, affinity.affinity_matvec_ref
+        got = fn(feat, u)
+        full = fn(feat, u, skip_cutoff=None)
+        want, mags = ref(feat, u), ref(feat, u.abs())
+        torch.cuda.synchronize()
+        tol = (2 * bound_rel + 1e-5) * mags + float(np.exp(-30.0)) * u.abs().sum().item()
+        err = ((got - want).abs() / tol).max().item()
+        err_full = ((full - want).abs() / tol).max().item()
+        share = ((got - want).abs() / mags).max().item()
+        max_err = (got - want).abs().max().item()
+        del want, mags, full
+        require(err <= 1.0 and err_full <= 1.0,
+                f"{name}: {err:.3f} / {err_full:.3f} of the tolerance")
+        ms = timed_ms(lambda: fn(feat, u))
+        ms_full = timed_ms(lambda: fn(feat, u, skip_cutoff=None), reps=3)
+        plain_ms = timed_ms(lambda: ref(feat, u), reps=3, warmup=1)
+        io = nbytes(feat, u, got)
+        bnd = bound(affinity_flops(1, LN, 6, LK, ordered), "f32", io)
+        bnd_full = bound(affinity_flops(1, LN, 6, LK, float(LN) ** 2), "f32", io)
+        print(f"  {name} B=1 N={LN} F=6 K={LK} (bench room, Morton order): "
+              f"max err {share:.2e} of sum |W||u| ({err:.3f} of the "
+              f"tolerance, Gram bound {bound_rel:.2e}); tile pairs skipped "
+              f"{100 * skipped:.2f}%; kernel {ms:.3f} ms, without skipping "
+              f"{ms_full:.3f} ms, plain {plain_ms:.3f} ms; bound over the "
+              f"surviving pairs {bnd[0]:.4f} ms ({bnd[1]}), every pair "
+              f"{bnd_full[0]:.4f} ms; {100 * bnd[0] / ms:.1f}% of bound")
+        report.append(kernel_row(
+            name, "weaksuppointcloudseg_tpu_torch/ops/csrc/affinity.cu",
+            "weaksuppointcloudseg_tpu/ops/affinity_pallas.py:"
+            + ("272" if transposed else "171"), max_err, ms, plain_ms, bnd))
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(report):
     import torch
 
@@ -896,6 +1021,7 @@ def phase_kernels(report):
     check_scatter_add_weighted(gen, report)
     check_knn_wgather(gen, report)
     torch.cuda.empty_cache()
+    check_affinity(gen, report)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -959,9 +1085,10 @@ def write_raw_testset(base: str, num_shapes: int = 40, seed: int = 0) -> None:
         f.write("\n".join(rows) + "\n")
 
 
-def full_width_model(seed: int = 0):
-    """The ShapeNet preset at full width with seeded random weights and
-    non-trivial BN: gammas of both signs, shifted means, spread variances."""
+def full_width_model(seed: int = 0, preset: str = "shapenet_config"):
+    """A preset (``configs.<preset>``) at full width with seeded random
+    weights and non-trivial BN: gammas of both signs, shifted means, spread
+    variances."""
     import dataclasses
 
     import torch
@@ -969,7 +1096,7 @@ def full_width_model(seed: int = 0):
     from weaksuppointcloudseg_tpu_torch import configs
     from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 
-    cfg = dataclasses.replace(configs.shapenet_config().model,
+    cfg = dataclasses.replace(getattr(configs, preset)().model,
                               compute_dtype="bfloat16", knn_fast=True)
     model = DGCNNSeg(cfg, seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -1640,6 +1767,224 @@ def phase_s3dis_train(report) -> None:
                      "bf16 Full S3DIS train step")
 
 
+# ---------------------------------------------------------------- phase 8
+
+# the raw test rooms of phase 8: name, size in metres (x, y, z)
+TEST_ROOMS = (("Area_5_office_1", (8.0, 4.0, 3.0)),   # 32 blocks: 131,072 points
+              ("Area_5_office_2", (5.0, 5.0, 3.0)))   # 25 blocks, padded to 32
+
+
+def surface_room(rng: np.random.Generator, size, per_m2: int = 2000):
+    """A raw S3DIS room [N_raw, 7] (xyz in metres from the min corner, rgb
+    0-255, label) sampled on surfaces as scans are: floor (1), ceiling
+    (0), four walls (2), a table top (7) and a bookcase face (10), with
+    clutter (12) in the volume; colours by class with noise."""
+    sx, sy, sz = size
+    parts = []
+
+    def plane(n, lab, x, y, z):
+        parts.append((np.stack([x, y, z], 1), np.full(n, lab)))
+
+    for lab, z in ((1, 0.0), (0, sz)):
+        n = int(sx * sy * per_m2)
+        plane(n, lab, rng.uniform(0, sx, n), rng.uniform(0, sy, n), np.full(n, z))
+    for fixed, length, along_x in ((0.0, sx, True), (sy, sx, True),
+                                   (0.0, sy, False), (sx, sy, False)):
+        n = int(length * sz * per_m2 / 2)
+        t, z = rng.uniform(0, length, n), rng.uniform(0, sz, n)
+        c = np.full(n, fixed)
+        plane(n, 2, *((t, c, z) if along_x else (c, t, z)))
+    n = int(1.2 * 0.8 * per_m2)
+    plane(n, 7, rng.uniform(1.0, 2.2, n), rng.uniform(1.0, 1.8, n), np.full(n, 0.75))
+    n = int(2.0 * 1.8 * per_m2)
+    plane(n, 10, rng.uniform(2.5, 4.5, n), np.full(n, 0.3), rng.uniform(0, 1.8, n))
+    n = int(sx * sy * per_m2 * 0.05)
+    plane(n, 12, *(rng.uniform(0, m, n) for m in size))
+    xyz = np.concatenate([p[0] for p in parts])
+    lab = np.concatenate([p[1] for p in parts])
+    rgb = np.clip(lab[:, None] * 19.0 + rng.normal(0, 20, (len(lab), 3)), 0, 255)
+    return np.concatenate([xyz, rgb, lab[:, None]], 1)
+
+
+def write_raw_area(base: str, rng: np.random.Generator) -> None:
+    """The raw test area the S3DIS test CLI reads (numpy only):
+    meta/area5_data_label.txt listing one .npy per room of TEST_ROOMS."""
+    import os
+
+    os.makedirs(os.path.join(base, "meta"), exist_ok=True)
+    os.makedirs(os.path.join(base, "rooms"), exist_ok=True)
+    rows = []
+    for name, size in TEST_ROOMS:
+        np.save(os.path.join(base, "rooms", f"{name}.npy"), surface_room(rng, size))
+        rows.append(f"rooms/{name}.npy")
+    with open(os.path.join(base, "meta", "area5_data_label.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def run_test_cli(argv, pred_dir, kernels):
+    """cli.test_s3dis.main(argv) with every kernel's count reset and the
+    room-LP CG's matvecs counted per call (propagate/label_prop.py::_cg);
+    returns (result, launches, [matvecs per CG], wall s). The per-room
+    .mat files and PerClassIoU.mat must be written, the mIoU finite."""
+    import os
+    import shutil
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.cli import test_s3dis
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
+
+    shutil.rmtree(pred_dir, ignore_errors=True)
+    cg, matvecs = label_prop._cg, []
+
+    def counting_cg(matvec, *a, **kw):
+        matvecs.append(0)
+
+        def mv(v):
+            matvecs[-1] += 1
+            return matvec(v)
+        return cg(mv, *a, **kw)
+
+    with patched(label_prop, "_cg", counting_cg):
+        t0 = time.perf_counter()
+        res, launches = count_launches(kernels, lambda: test_s3dis.main(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    want = sorted([f"{name}_pred_gt.mat" for name, _ in TEST_ROOMS]
+                  + ["PerClassIoU.mat"])
+    got = sorted(os.listdir(pred_dir)) if os.path.isdir(pred_dir) else []
+    require(got == want, f"test CLI wrote {got}, expected {want}")
+    require(np.isfinite(res["miou"]) and 0.0 <= res["miou"] <= 1.0,
+            f"test CLI mIoU {res['miou']}")
+    return res, launches, matvecs, wall
+
+
+def phase_s3dis_test(report) -> None:
+    """The S3DIS test path through cli.test_s3dis at full width: per-block
+    LP (B1/B7/B8, no B10) and --RoomLP (B10 once for the degrees and once
+    per CG iteration, per room); then bench.py's S3DIS test metrics."""
+    import os
+    import tempfile
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import affinity, conv_kmax, edgeconv
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
+    from weaksuppointcloudseg_tpu_torch.train.steps import make_eval_logits_fn
+    from weaksuppointcloudseg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    print("phase 8: S3DIS test path end to end (cli.test_s3dis), full width, "
+          "bf16, knn_fast, -bs 14: per-block LP, then --RoomLP")
+    kernels = {"knn_edge (B1)": edgeconv.knn_edge,
+               "conv_zmax (B7)": conv_kmax.conv_zmax,
+               "conv_znmax (B8)": conv_kmax.conv_znmax,
+               "affinity_matvec_t (B10)": affinity.affinity_matvec_t}
+    _, model = full_width_model(seed=2, preset="s3dis_config")
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = f"{tmp}/indoor3d_sem_seg_hdf5_data"
+        write_s3dis_split(data_path, np.random.default_rng(3), 2, 2)
+        write_raw_area(tmp, np.random.default_rng(4))
+        os.makedirs(f"{tmp}/run/Checkpoint")
+        ckpt = save_checkpoint(f"{tmp}/run/Checkpoint/ckpt.npz", model)
+        argv = ["--DataPath", data_path, "--RoomsPath", tmp, "--Checkpoint",
+                ckpt, "-sty", "Full", "-bs", str(RB // 2), "--Precision",
+                "bfloat16", "--FastKNN"]
+        pred_dir = f"{tmp}/run/Prediction"
+        res, launches, matvecs, wall = run_test_cli(argv, pred_dir, kernels)
+        print(f"  per-block LP: {wall:.2f} s wall for {len(TEST_ROOMS)} rooms "
+              f"(first calls included); mIoU {res['miou']:.4f}; launches "
+              f"{launches}; CG matvecs {matvecs}")
+        check_path_launches(report, launches, "affinity_matvec_t (B10)",
+                            (), "the per-block test path")
+        res, launches, matvecs, wall = run_test_cli(
+            argv + ["--RoomLP"], pred_dir, kernels)
+        print(f"  --RoomLP: {wall:.2f} s wall; mIoU {res['miou']:.4f}; launches "
+              f"{launches}; CG matvecs per room {matvecs}")
+    b10 = launches["affinity_matvec_t (B10)"]
+    require(len(matvecs) == len(TEST_ROOMS) and b10 == sum(1 + m for m in matvecs),
+            f"B10 launched {b10} times for CGs of {matvecs} matvecs")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel did not launch on the --RoomLP path: {launches}")
+    for row in report:
+        if row["name"] == "affinity_matvec_t (B10)":
+            row["launches"] = b10
+
+    # bench.py's S3DIS test metrics: 14 blocks x 4096 points of surface-
+    # sampled 1 m blocks, per-block LP on its sharpened trained_like
+    # probabilities; one room LP of its 131,072-point room
+    card = card_line()
+    dev = torch.device("cuda")
+    model = model.to(dev).eval()
+    logits_fn = make_eval_logits_fn(model)
+    bs, n = RB // 2, RN
+    rng = np.random.default_rng(0)
+    n_surf = int(n * 0.7)
+    xy = rng.uniform(0, 1, (bs, n_surf, 2)).astype(np.float32)
+    which = rng.integers(0, 4, (bs, n_surf))
+    z = np.where(which == 0, 0.0, np.where(which == 1, 3.0,
+                 rng.uniform(0, 3.0, (bs, n_surf))))
+    x0 = np.where(which == 2, np.round(xy[..., 0]), xy[..., 0])
+    surf = np.stack([x0, xy[..., 1], z], -1)
+    interior = rng.uniform(0, 1, (bs, n - n_surf, 3)) * np.array([1.0, 1.0, 3.0])
+    xyz = np.concatenate([surf, interior], 1).astype(np.float32)
+    rgb = rng.uniform(0, 1, (bs, n, 3)).astype(np.float32)
+    feat = np.concatenate([xyz - xyz.mean(1, keepdims=True), rgb,
+                           xyz / np.array([1.0, 1.0, 3.0], np.float32)], -1)
+    x = torch.from_numpy(feat.astype(np.float32)).to(dev)
+    d_xyz, d_rgb = torch.from_numpy(xyz).to(dev), torch.from_numpy(rgb).to(dev)
+    sharp = torch.from_numpy(rng.standard_normal((bs, n, 13)).astype(
+        np.float32) * 5.0).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return torch.softmax(logits_fn(x), -1)
+
+    def e2e():
+        with torch.inference_mode():
+            prob = torch.softmax(torch.log(forward() + 1e-9) + sharp, -1)
+            return label_prop.propagate_batch(d_xyz, prob, d_rgb)
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms, e2e_ms = timed_ms(forward), timed_ms(e2e)
+    for metric, ms in (("s3dis_eval_forward_throughput", fwd_ms),
+                       ("s3dis_test_e2e_throughput", e2e_ms)):
+        print(f"  {metric}: {ms:.3f} ms per {bs}x{n} batch, "
+              f"{bs * n / ms * 1e3:.0f} points/s [{card}]")
+    print(f"  peak device memory of the block test path "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    device_breakdown(e2e, card, what="s3dis e2e")
+
+    room = [torch.from_numpy(a).to(dev) for a in bench_room(LN)]
+    before = affinity.affinity_matvec_t.launches
+    y = label_prop.propagate_batch(*room, solver="cg_matfree")
+    torch.cuda.synchronize()
+    iters = affinity.affinity_matvec_t.launches - before - 1
+    require(bool(torch.isfinite(y).all()) and y.shape == (1, LN, 13),
+            "room LP output")
+    torch.cuda.reset_peak_memory_stats()
+    room_ms = timed_ms(lambda: label_prop.propagate_batch(*room, solver="cg_matfree"),
+                       reps=5, warmup=1)
+    print(f"  s3dis_room_lp_131072: {room_ms:.3f} ms per room of {LN} points, "
+          f"{iters} CG iterations ({(room_ms) / (iters + 1):.3f} ms per B10 "
+          f"launch with its CG step) [{card}]")
+    print(f"  peak device memory of the room LP "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    device_breakdown(lambda: label_prop.propagate_batch(*room, solver="cg_matfree"),
+                     card, runs=2, what="room LP")
+
+    # the room LP on the card against the CPU's plain version, on the
+    # first 4096 points of the room: probabilities within 1e-3 (the CG's
+    # f32 error level), argmax agreement >= 99.9%
+    small = [t[:, :4096] for t in room]
+    got = label_prop.propagate_batch(*small, solver="cg_matfree").cpu()
+    want = label_prop.propagate_batch(*[t.cpu() for t in small], solver="cg_matfree")
+    dy = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"  room LP on 4096 points, card vs CPU plain: max |dy| {dy:.2e}, "
+          f"argmax agreement {agree:.5f}")
+    require(dy <= 1e-3 and agree >= 0.999, "the card's room LP disagrees")
+
+
 def fused_step_vs_cpu(model_cfg, sub, seed):
     """One fused bf16 training step (forward_fused + masked CE + backward)
     of a model with seeded random weights on ``sub``, on the card and over
@@ -1730,7 +2075,7 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 # device kernels by the kind of work (first match wins)
 KERNEL_GROUPS = (
     ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
-    ("KnnOut", "B12"), ("WGatherOut", "B9"),
+    ("KnnOut", "B12"), ("WGatherOut", "B9"), ("affinity_kernel", "B10"),
     ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
     ("scatter_add_weighted", "B6 scatter"),
     ("scatter_add_kernel", "B13"), ("conv_minmax", "B2"),
@@ -1764,6 +2109,7 @@ def main() -> int:
     phase_plain_train(report)
     phase_full_train(report)
     phase_s3dis_train(report)
+    phase_s3dis_test(report)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ once) over the memory rate (chip_smoke.py::bound, 700 W SXM peaks).
 
     python scripts/torch_kernel_bounds.py
 
-Pure arithmetic on the shapes, no device: the numbers are the ``bound``
-column of PERF.md's kernel table. For the kernels chip_smoke.py measures,
-it computes the same bound from the tensors it times.
+Arithmetic on the shapes, no device: the numbers are the ``bound`` column
+of PERF.md's kernel table. For the kernels chip_smoke.py measures, it
+computes the same bound from the tensors it times. The room-LP rows count
+the tile pairs that B10's skip mask keeps on bench.py's room, computed
+here on the CPU (ops/affinity.py, the port's own mask).
 
 Shapes: serving is the ShapeNet test batch (B=32 views x N=3000, k=20);
 training the Full-style batch (B=64 clouds = 32 unique x 2, N=2048,
@@ -15,12 +17,13 @@ k=20, C=64 EdgeConv width, 50 classes, smooth k=10); the fused training
 kernels B2-B5 the Plain-style bf16 batch of bench.py's
 shapenet_plain_train_throughput (B=32 clouds, N=2048, k=20); S3DIS the Full-style
 batch of bench.py (B=28 = 14 x 2, N=4096, xyzrgb, 13 classes, smooth
-k=10); room LP one room of N=32768 points, 6 features, 13 classes, every
-tile computed (the kernel's bounding-box skip depends on the room).
+k=10); room LP one room of bench.py's s3dis_room_lp_131072 (N=131072
+points of its 8 x 8 x 3 m room, Morton-sorted, 6 features, 13 classes),
+with every tile pair and with the pairs the skip mask keeps.
 
 A distance or affinity of a cloud with itself is symmetric, so it is
-counted once per pair, diagonal included (chip_smoke.py::gram_pairs); the
-room-LP matvec still takes every ordered pair.
+counted once per pair, diagonal included (chip_smoke.py::gram_pairs,
+affinity_flops); the room-LP matvec's apply takes every ordered pair.
 """
 
 from __future__ import annotations
@@ -29,7 +32,14 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-from chip_smoke import bound, gram_pairs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    LK,
+    LN,
+    affinity_flops,
+    bench_room,
+    bound,
+    gram_pairs,
+)
 
 BF16, F32, I32 = 2, 4, 4
 
@@ -38,12 +48,38 @@ SB, SN = 32, 3000
 TB, TN, K, C = 64, 2048, 20, 64
 PB = 32  # the Plain-style bf16 training batch
 RB, RN, RC, RK = 28, 4096, 6, 10
-LN, LF, LK = 32768, 6, 13
+LF = 6
+
+
+def surviving_pairs() -> float:
+    """Ordered (i, j) pairs B10 computes on bench.py's room: the tile pairs
+    its skip mask keeps (128-point tiles, cutoff 30) times 128^2."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import affinity
+
+    xyz, _, rgb = (torch.from_numpy(a) for a in bench_room(LN))
+    feat = torch.cat([xyz * 1e3 ** 0.5, rgb * 10 ** 0.5], -1)
+    feat = feat - feat.mean(1, keepdim=True)
+    order = affinity.morton_order(xyz).long()[0]
+    feat_t = feat[:, order].transpose(1, 2).contiguous()
+    mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE,
+                                affinity.SKIP_CUTOFF)
+    return float(mask.sum()) * affinity.TILE ** 2
 
 
 def rows():
     """(id, pallas_call site, shape note, flops, type, bytes) per kernel."""
     tnk = TB * TN * K
+    kept = surviving_pairs()
+    room_io = LN * LF * F32 + 2 * LN * LK * F32
+    room = [(kid, site, f"room LP N={LN}, one matvec, {what}",
+             affinity_flops(1, LN, LF, LK, pairs), "f32", room_io)
+            for kid, site in (("B10", "affinity_pallas.py:272"),
+                              ("B17", "affinity_pallas.py:171"))
+            for what, pairs in (("every pair", float(LN) ** 2),
+                                (f"{100 * kept / LN ** 2:.2f}% of pairs kept",
+                                 kept))]
     return [
         ("B1", "edgeconv_pallas.py:610", "serving Cg=C=64 fast",
          2.0 * gram_pairs(SB, SN) * C, "bf16",
@@ -79,9 +115,7 @@ def rows():
          2.0 * gram_pairs(RB, RN) * RC + 2.0 * RB * RN * RK * 14, "f32",
          RB * RN * RC * F32 + RB * RN * 14 * BF16
          + RB * RN * RK * (I32 + F32) + RB * RN * 14 * F32),
-        ("B10", "affinity_pallas.py:272", "room LP, one matvec",
-         gram_pairs(1, LN) * (3.0 * LF + 2) + LN * LN * 2.0 * LK, "f32",
-         LN * LF * F32 + 2 * LN * LK * F32),
+        *room[:2],
         ("B11", "edgeconv_pallas.py:862", "training C=64 (static graph)",
          2.0 * tnk * C, "bf16",
          tnk * I32 + 2 * TB * TN * C * BF16 + tnk * C * BF16),
@@ -90,9 +124,7 @@ def rows():
         ("B15", "edgeconv_pallas.py:286", "training Cg=C=64 bf16",
          2.0 * gram_pairs(TB, TN) * C, "bf16",
          2 * TB * TN * C * BF16 + tnk * (I32 + C * BF16)),
-        ("B17", "affinity_pallas.py:171", "room LP, one matvec",
-         gram_pairs(1, LN) * (3.0 * LF + 2) + LN * LN * 2.0 * LK, "f32",
-         LN * LF * F32 + 2 * LN * LK * F32),
+        *room[2:],
     ]
 
 

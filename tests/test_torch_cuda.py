@@ -18,12 +18,14 @@ import torch
 from weaksuppointcloudseg_tpu_torch import configs
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.ops import (
+    affinity,
     conv_kmax,
     edgeconv,
     knn,
     scatter,
     wgather,
 )
+from weaksuppointcloudseg_tpu_torch.propagate import label_prop
 
 pytestmark = pytest.mark.cuda
 
@@ -676,3 +678,105 @@ def test_weighted_gathers_never_reach_plain_versions(gen, monkeypatch):
     torch.cuda.synchronize()
     assert [fn.launches - c for fn, c in zip(kernels, before)] == [1, 1, 2]
     assert f.grad.dtype == torch.bfloat16 and bool(f.grad.isfinite().all())
+
+
+def affinity_errors(got, feat, u, transposed):
+    """max |kernel - plain| per element over its tolerance: twice the
+    Gram's f32 cancellation bound (label_prop.check_gram_cancellation;
+    each side rounds its own Gram) plus 1e-5 of sum_j W_ij |u_j| (expf's
+    2 ulp, another summation order), plus exp(-30) sum |u| for the skipped
+    pairs."""
+    ref = affinity.affinity_matvec_t_ref if transposed else affinity.affinity_matvec_ref
+    want, mags = ref(feat, u), ref(feat, u.abs())
+    bound = label_prop.check_gram_cancellation(
+        feat.transpose(1, 2) if transposed else feat)
+    skipped = torch.exp(torch.tensor(-30.0)) * u.abs().sum((1, 2), keepdim=True)
+    tol = (2 * bound + 1e-5) * mags + skipped + 1e-30
+    return ((got - want).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("n,k,transposed", [
+    (701, 13, True), (333, 1, True), (128, 16, True), (1000, 13, False),
+    (129, 1, False)])
+def test_affinity_kernel(gen, n, k, transposed):
+    """B10 (transposed) and B17 against their plain versions at odd N, the
+    CG's K=13 and the degree pass's K=1, F=6 and F=3."""
+    for f in (6, 3):
+        feat = torch.rand((2, n, f), generator=gen, device="cuda") * 2.0
+        u = torch.randn((2, n, k), generator=gen, device="cuda")
+        if transposed:
+            feat, u = feat.transpose(1, 2).contiguous(), u.transpose(1, 2).contiguous()
+        fn = affinity.affinity_matvec_t if transposed else affinity.affinity_matvec
+        before = fn.launches
+        got = fn(feat, u)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and got.shape == u.shape
+        assert affinity_errors(got, feat, u, transposed) <= 1.0
+
+
+def test_affinity_kernel_skips_far_tiles(gen):
+    """ROADMAP C9 on the card: a Morton-sorted scene of far-apart clusters
+    with a ragged last tile, where most tile pairs are skipped; the kernel
+    with skipping, without it and the plain version agree."""
+    centers = torch.rand((12, 3), generator=gen, device="cuda") * 6.0
+    xyz = (centers.repeat_interleave(100, 0)
+           + torch.randn((1200, 3), generator=gen, device="cuda") * 0.03)[None]
+    order = affinity.morton_order(xyz).long()[0]
+    rgb = torch.rand((1, 1200, 3), generator=gen, device="cuda")
+    feat = torch.cat([xyz * 1e3 ** 0.5, rgb * 10 ** 0.5], -1)[:, order]
+    feat = feat - feat.mean(1, keepdim=True)
+    feat_t = feat.transpose(1, 2).contiguous()
+    ut = torch.randn((1, 13, 1200), generator=gen, device="cuda")
+    mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE, 30.0)
+    assert 0.3 < 1.0 - mask.float().mean().item() < 1.0
+    got = affinity.affinity_matvec_t(feat_t, ut)
+    full = affinity.affinity_matvec_t(feat_t, ut, skip_cutoff=None)
+    torch.cuda.synchronize()
+    assert affinity_errors(got, feat_t, ut, True) <= 1.0
+    assert affinity_errors(full, feat_t, ut, True) <= 1.0
+    assert (got - full).abs().max().item() <= 1e-12 * ut.abs().sum().item() + 1e-6 * (
+        full.abs().max().item())
+
+
+def test_affinity_kernel_refuses(gen):
+    """K above 16, F above 6, and operands on two devices raise."""
+    feat_t = torch.rand((1, 6, 300), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="K=17"):
+        affinity.affinity_matvec_t(feat_t, torch.ones((1, 17, 300), device="cuda"))
+    with pytest.raises(ValueError, match="F=7"):
+        affinity.affinity_matvec(torch.rand((1, 300, 7), device="cuda"),
+                                 torch.ones((1, 300, 2), device="cuda"))
+    with pytest.raises(ValueError, match="expected cuda"):
+        affinity.affinity_matvec_t(feat_t, torch.ones((1, 2, 300)))
+    with pytest.raises(RuntimeError):
+        affinity.affinity_matvec_t(feat_t.cpu(), torch.ones((1, 2, 300), device="cuda"))
+
+
+def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
+    """label_propagation_matfree on the card (B10, tile skipping) against
+    the CPU's plain version on a 3000-point room of sharp probabilities:
+    probabilities within 1e-3 (the CG's f32 error level), argmax agreement
+    >= 99.9%; B10 launches once for the degrees and once per CG
+    iteration."""
+    xyz = torch.rand((1, 3000, 3), generator=gen, device="cuda") * torch.tensor(
+        [3.0, 2.0, 0.2], device="cuda")
+    rgb = torch.rand((1, 3000, 3), generator=gen, device="cuda")
+    g = torch.softmax(torch.randn((1, 3000, 13), generator=gen, device="cuda")
+                      * 3.0, -1)
+    calls = []
+    cg = label_prop._cg
+
+    def counting_cg(matvec, *a, **kw):
+        def mv(v):
+            calls.append(1)
+            return matvec(v)
+        return cg(mv, *a, **kw)
+    monkeypatch.setattr(label_prop, "_cg", counting_cg)
+    before = affinity.affinity_matvec_t.launches
+    got = label_prop.propagate_batch(xyz, g, rgb, solver="cg_matfree")
+    torch.cuda.synchronize()
+    assert affinity.affinity_matvec_t.launches - before == 1 + len(calls) > 1
+    want = label_prop.propagate_batch(xyz.cpu(), g.cpu(), rgb.cpu(),
+                                      solver="cg_matfree")
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+    assert (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item() >= 0.999

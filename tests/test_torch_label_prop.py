@@ -91,11 +91,15 @@ def test_cg_norm_spans_the_batch():
 
 
 def test_other_solvers_name_their_roadmap_entry():
-    x = torch.zeros((1, 4, 3))
-    for solver in ("solve", "cg_matfree", "sharded"):
+    """"cg_matfree" is ported (tests/test_torch_affinity.py holds it
+    against JAX); "solve" and "sharded" raise naming their entries."""
+    x = torch.rand((1, 4, 3), generator=torch.Generator().manual_seed(0))
+    g = torch.full((1, 4, 2), 0.5)
+    y = label_prop.propagate_batch(x, g, solver="cg_matfree")
+    assert y.shape == (1, 4, 2) and bool(torch.isfinite(y).all())
+    for solver in ("solve", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            label_prop.propagate_batch(x, torch.full((1, 4, 2), 0.5),
-                                       solver=solver)
+            label_prop.propagate_batch(x, g, solver=solver)
 
 
 def test_entropy_confidence_matches_jax():

@@ -132,3 +132,15 @@ def result_base_path(args, dataset: str = "ShapeNet") -> str:
     dt = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     return os.path.expanduser(
         f"./Results/{dataset}/{args.Network}_sty-{args.Style}_m-{args.m}_{dt}")
+
+
+def find_result_dir(dataset: str, args) -> str:
+    """Locate a train run's result dir under ./Results/<dataset> by its
+    --Datetime stamp."""
+    root = os.path.expanduser(f"./Results/{dataset}")
+    if args.Datetime is None:
+        raise SystemExit("need --Datetime (or --Checkpoint) to locate the model")
+    matches = [d for d in os.listdir(root) if d.endswith(args.Datetime)]
+    if len(matches) != 1:
+        raise SystemExit(f"{len(matches)} result dirs match '{args.Datetime}' in {root}")
+    return os.path.join(root, matches[0])

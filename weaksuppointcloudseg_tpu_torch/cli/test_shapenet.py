@@ -40,17 +40,6 @@ def build_config(args) -> configs.ExperimentConfig:
     return common.build_config(args)
 
 
-def find_result_dir(args) -> str:
-    """Locate a train run's result dir by its --Datetime stamp."""
-    root = os.path.expanduser("./Results/ShapeNet")
-    if args.Datetime is None:
-        raise SystemExit("need --Datetime (or --Checkpoint) to locate the model")
-    matches = [d for d in os.listdir(root) if d.endswith(args.Datetime)]
-    if len(matches) != 1:
-        raise SystemExit(f"{len(matches)} result dirs match '{args.Datetime}' in {root}")
-    return os.path.join(root, matches[0])
-
-
 def main(argv=None) -> dict:
     p = parser()
     args = p.parse_args(argv)
@@ -67,7 +56,7 @@ def main(argv=None) -> dict:
     if args.Checkpoint:
         ckpt = args.Checkpoint
     else:
-        ckpt = os.path.join(find_result_dir(args), "Checkpoint",
+        ckpt = os.path.join(common.find_result_dir("ShapeNet", args), "Checkpoint",
                             "Checkpoint_epoch-best.npz")
     trainer.restore_checkpoint(ckpt)
 

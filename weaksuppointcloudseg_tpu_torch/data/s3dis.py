@@ -1,13 +1,22 @@
-"""S3DIS indoor semantic-segmentation training data.
+"""S3DIS indoor semantic-segmentation data.
 
-Counterpart of the training half of weaksuppointcloudseg_tpu/data/s3dis.py
-(reference: S3DIS/DataIO_S3DIS.py:36-83): every h5 block shard listed in
-``all_files.txt`` (``data`` [S, 4096, 9], ``label`` [S, 4096]), split into
-train and test blocks by matching ``Area_<k>`` against
-``room_filelist.txt``, served as fixed-shape batches. Channels 0:3 are xyz
-with the block xy-centred, 3:6 rgb/255, 6:9 xyz normalized by the room
-extent. ``h5py`` is imported only when a shard is read. The test-time
-block sweep of whole rooms comes with the S3DIS test path (ROADMAP).
+Counterpart of weaksuppointcloudseg_tpu/data/s3dis.py (reference:
+S3DIS/DataIO_S3DIS.py):
+
+- training: every h5 block shard listed in ``all_files.txt`` (``data``
+  [S, 4096, 9], ``label`` [S, 4096]), split into train and test blocks by
+  matching ``Area_<k>`` against ``room_filelist.txt``, served as
+  fixed-shape batches (DataIO_S3DIS.py:36-83). ``h5py`` is imported only
+  when a shard is read;
+- test: ``room_to_blocks``, the 1 m x 1 m block sweep of a raw room with
+  the >= 100-point filter and resampling to ``num_point`` points
+  (DataIO_S3DIS.py:301-433), and ``S3DISTestRooms``, the rooms of one area
+  from ``meta/<area>_data_label.txt`` (DataIO_S3DIS.py:254-299, with the
+  path join fixed: the reference's leading '/' discarded the base dir).
+
+Channels 0:3 are xyz with the block xy-centred, 3:6 rgb/255, 6:9 xyz
+normalized by the room extent. The reference's random block corners
+(``random_sample``) are not ported: the test path sweeps the regular grid.
 """
 
 from __future__ import annotations
@@ -107,3 +116,100 @@ class S3DISDataset:
                 idx = np.concatenate([idx, order[:batch_size - valid]])
             yield Batch(data=self.data[idx], seg=self.label[idx],
                         sample_ids=idx, valid=valid)
+
+
+def sample_to_num_points(n: int, num_point: int,
+                         rng: np.random.Generator) -> np.ndarray:
+    """Indices resampling n points to ``num_point`` (DataIO_S3DIS.py:417-433):
+    a draw with replacement when there are more, all of them plus such a
+    draw when there are fewer."""
+    if n == num_point:
+        return np.arange(n)
+    if n > num_point:
+        return rng.choice(n, num_point)
+    return np.concatenate([np.arange(n), rng.choice(n, num_point - n)])
+
+
+BLOCK_SIZE = 1.0  # metres, the sweep's block edge and stride
+MIN_POINTS = 100  # blocks with fewer points are dropped
+
+
+def room_to_blocks(data_label: np.ndarray, num_point: int, *,
+                   rng: Optional[np.random.Generator] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Room -> fixed-size 9-channel blocks (DataIO_S3DIS.py:301-414).
+
+    Args:
+      data_label: [N, 7] (xyz in metres from the room's min corner, rgb
+        0-255, class label).
+      rng: the resampling draws, in block order (default: seed 0).
+
+    Returns:
+      (blocks [K, num_point, 9] f32, labels [K, num_point] i32). A point on
+      a block edge belongs to both blocks (inclusive bounds, as the
+      reference).
+    """
+    rng = rng or np.random.default_rng(0)
+    data = np.array(data_label[:, 0:6], np.float64)
+    data[:, 3:6] /= 255.0
+    label = data_label[:, -1].astype(np.int32)
+    limit = data[:, 0:3].max(axis=0)
+    num_x = int(np.ceil((limit[0] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+    num_y = int(np.ceil((limit[1] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+
+    blocks, labels = [], []
+    for i in range(num_x):
+        for j in range(num_y):
+            xbeg, ybeg = i * BLOCK_SIZE, j * BLOCK_SIZE
+            cond = ((data[:, 0] >= xbeg) & (data[:, 0] <= xbeg + BLOCK_SIZE)
+                    & (data[:, 1] >= ybeg) & (data[:, 1] <= ybeg + BLOCK_SIZE))
+            n_in = int(cond.sum())
+            if n_in < MIN_POINTS:
+                continue
+            sel = sample_to_num_points(n_in, num_point, rng)
+            block, blab = data[cond][sel], label[cond][sel]
+            out = np.zeros((num_point, 9), np.float32)
+            out[:, 6:9] = block[:, 0:3] / limit
+            block[:, 0] -= block[:, 0].min() + BLOCK_SIZE / 2
+            block[:, 1] -= block[:, 1].min() + BLOCK_SIZE / 2
+            out[:, 0:6] = block
+            blocks.append(out)
+            labels.append(blab)
+    if not blocks:
+        return (np.zeros((0, num_point, 9), np.float32),
+                np.zeros((0, num_point), np.int32))
+    return np.stack(blocks), np.stack(labels)
+
+
+class S3DISTestRooms:
+    """The raw rooms of one area, listed in ``meta/<area>_data_label.txt``
+    under ``base_dir`` (paths relative to it), swept room by room."""
+
+    def __init__(self, base_dir: str, test_area: str = "area5",
+                 num_point: int = 4096):
+        self.num_point = num_point
+        meta = os.path.join(base_dir, "meta", f"{test_area}_data_label.txt")
+        with open(meta) as f:
+            self.room_paths = [os.path.join(base_dir, line.strip())
+                               for line in f if line.strip()]
+
+    def __len__(self) -> int:
+        return len(self.room_paths)
+
+    def load_room(self, i: int, rng: Optional[np.random.Generator] = None):
+        """(blocks [K, N, 9], labels [K, N], room path, room_max [3] f32).
+
+        ``room_max`` is the room's xyz extent in metres, the scale of block
+        channels 6:9: channels 6:9 times it are the points' room
+        coordinates, which room-level label propagation needs.
+        """
+        path = self.room_paths[i]
+        if path.endswith(".txt"):
+            data_label = np.loadtxt(path)
+        elif path.endswith(".npy"):
+            data_label = np.load(path)
+        else:
+            raise ValueError(f"unknown room file type: {path}")
+        blocks, labels = room_to_blocks(data_label, self.num_point, rng=rng)
+        room_max = data_label[:, 0:3].max(axis=0).astype(np.float32)
+        return blocks, labels, path, room_max

@@ -46,6 +46,7 @@ SIGNATURES = {
     "wgather_pre_launch": [P, P, P, I, I, I, I, P, P],
     "scatter_add_weighted_launch": [P, P, P, I, I, I, I, I, P, P],
     "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
+    "affinity_matvec_launch": [P, P, P, I, I, I, I, I, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,22 +1,24 @@
 """Probabilistic label propagation (inference-time refinement).
 
-Counterpart of weaksuppointcloudseg_tpu/propagate/label_prop.py, default
-solver only ("cg", the factored-W conjugate gradient):
+Counterpart of weaksuppointcloudseg_tpu/propagate/label_prop.py, solvers
+"cg" (the factored-W conjugate gradient, the default) and "cg_matfree"
+(room-level LP):
 
     w_i = 1 - H(G_i) / log2(K)                               (confidence)
     Y   = beta * (alpha Lsym + beta diag(w) + ridge I)^-1 diag(w) G
     Y_prob = Y / sum_k Y
 
-The affinity W is built once and the Laplacian is never formed: the CG
-matvec applies ``A v = diag v - alpha s (W (s v))`` with ``s = d^-1/2``.
-W @ v is a large batched matrix product left to ``torch.bmm`` (the
-reference leaves it to XLA; no Pallas kernel on this path).
+The Laplacian is never formed: the CG matvec applies ``A v = diag v -
+alpha s (W (s v))`` with ``s = d^-1/2``. "cg" builds the affinity W once
+and leaves W @ v to ``torch.bmm`` (the reference leaves it to XLA; no
+Pallas kernel on that path). "cg_matfree" builds no [N, N] array: every
+matvec recomputes W through kernel B10 (ops/affinity.py).
 
 CG semantics follow ``jax.scipy.sparse.linalg.cg`` exactly as the
-reference calls it: the whole [B, N, K] array is ONE vector, so every dot
-product and the stop test ``|r|^2 <= tol^2 |b|^2`` (atol 0, at most
-``cg_iters`` iterations) run over the batch. A per-sample CG would stop
-each sample on its own residual and give other answers.
+reference calls it: the whole array is ONE vector, so every dot product
+and the stop test ``|r|^2 <= tol^2 |b|^2`` (atol 0, at most ``cg_iters``
+iterations) run over the batch. A per-sample CG would stop each sample on
+its own residual and give other answers.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ from typing import Optional
 
 import torch
 
+from weaksuppointcloudseg_tpu_torch.ops.affinity import (
+    affinity_matvec_t,
+    morton_order,
+)
 from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
     product_kernel_weights,
 )
@@ -33,9 +39,17 @@ from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
 _DEGREE_EPS = 1e-8  # LabelPropConfig.degree_eps; no caller changes it
 _NOT_PORTED = {
     "solve": "batched dense LU (ROADMAP queue A, eval and LP)",
-    "cg_matfree": "matrix-free CG, kernel B10 (ROADMAP queue A, room LP)",
     "sharded": "point-axis-sharded CG (ROADMAP queue A, data parallelism)",
 }
+# The centred Gram |f_i|^2 - 2 f_i.f_j + |f_j|^2 cancels in f32 to an error
+# of a few ulps of max |f|^2 (its bound: 4 x 2^-23 x max |f|^2), which
+# exp(-d^2) turns into a factor e^(+-error) on the affinities. A bound
+# above 1 (some point more than ~45 m from the centroid at the xyz
+# bandwidth 1e3) corrupts them: real rooms, tens of metres long, stay
+# below it, and pad points placed 1 km away (once the room-LP pads, which
+# gave 0.86 argmax agreement with the dense solve) go far above.
+_GRAM_ULPS = 4
+_GRAM_ERROR_LIMIT = 1.0
 
 
 def entropy_confidence(g: torch.Tensor) -> torch.Tensor:
@@ -45,22 +59,29 @@ def entropy_confidence(g: torch.Tensor) -> torch.Tensor:
     return 1.0 - entropy / math.log2(g.shape[-1])
 
 
-def _cg(matvec, rhs: torch.Tensor, maxiter: int, tol: float) -> torch.Tensor:
-    """Conjugate gradient with x0 = 0, one vector over the whole array."""
+def _cg(matvec, rhs: torch.Tensor, maxiter: int, tol: float,
+        M=None) -> torch.Tensor:
+    """Conjugate gradient with x0 = 0, one vector over the whole array,
+    optionally preconditioned by ``M`` (a function v -> M v). As
+    ``jax.scipy.sparse.linalg.cg``: gamma = r.M(r), and the stop test reads
+    r.r when M is given (gamma without it)."""
+    precond = (lambda v: v) if M is None else M
     x = torch.zeros_like(rhs)
     r = rhs.clone()  # b - A(0)
-    p = r
-    gamma = torch.sum(r * r)
+    p = precond(r)
+    gamma = torch.sum(r * p)
     atol2 = tol * tol * torch.sum(rhs * rhs)
     for _ in range(maxiter):
-        if not bool(gamma > atol2):  # the reference's while-loop condition
+        rs = gamma if M is None else torch.sum(r * r)
+        if not bool(rs > atol2):  # the reference's while-loop condition
             break
         ap = matvec(p)
         alpha = gamma / torch.sum(p * ap)
         x = x + alpha * p
         r = r - alpha * ap
-        gamma_new = torch.sum(r * r)
-        p = r + (gamma_new / gamma) * p
+        z = precond(r)
+        gamma_new = torch.sum(r * z)
+        p = z + (gamma_new / gamma) * p
         gamma = gamma_new
     return x
 
@@ -89,6 +110,66 @@ def label_propagation_factored(
     return y / torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
 
 
+def check_gram_cancellation(feat: torch.Tensor) -> float:
+    """The f32 cancellation bound of the Gram of centred features feat
+    [B, N, F] (4 ulps of the largest |f|^2); raises above its limit 1
+    (ROADMAP C8: pad points must stay near the cloud)."""
+    bound = _GRAM_ULPS * 2.0 ** -23 * float(torch.sum(feat * feat, dim=-1).max())
+    if not bound <= _GRAM_ERROR_LIMIT:
+        raise ValueError(
+            f"label_propagation_matfree: the f32 cancellation bound of the "
+            f"centred Gram, {_GRAM_ULPS} ulps of max |f|^2 = {bound:.3g}, "
+            f"exceeds the limit {_GRAM_ERROR_LIMIT} (some point lies more "
+            f"than ~45 m from the centroid at the xyz bandwidth 1e3): "
+            f"exp(-d^2) would be corrupted; keep pad points near the cloud")
+    return bound
+
+
+def label_propagation_matfree(
+    xyz: torch.Tensor, g: torch.Tensor, rgb: torch.Tensor, *,
+    alpha: float = 1.0, beta: float = 1.0, xyz_bandwidth: float = 1e3,
+    rgb_bandwidth: float = 1e1, ridge: float = 1e-5, cg_iters: int = 50,
+    cg_tol: float = 1e-5,
+) -> torch.Tensor:
+    """Matrix-free label propagation: the CG recomputes the affinities in
+    every matvec (kernel B10), so memory stays O(N). xyz [B,N,Cx], g
+    [B,N,K] probabilities, rgb [B,N,Cr] -> Y_prob [B, N, K] f32.
+
+    The xyz and rgb kernels fold into one Gaussian of the 6-channel
+    features (sqrt(bw_xyz) xyz | sqrt(bw_rgb) rgb), centred per sample
+    (distances are translation-invariant, and centring shrinks the f32
+    cancellation of the Gram: :func:`check_gram_cancellation`). The points
+    are Morton-sorted so that B10 skips far tile pairs; the CG runs in that
+    order in the [B, K, N] layout, Jacobi-preconditioned (M = v / diag),
+    and the result is unsorted at the end. Padding the CG to tiles, as the
+    reference's kernel needs, is not needed here.
+    """
+    feat = torch.cat([xyz * math.sqrt(xyz_bandwidth),
+                      rgb * math.sqrt(rgb_bandwidth)], dim=-1)
+    feat = feat - torch.mean(feat, dim=1, keepdim=True)
+    check_gram_cancellation(feat)
+    order = morton_order(xyz).long()
+    take = lambda a: torch.gather(a, 1, order[..., None].expand(-1, -1, a.shape[-1]))
+    feat_t = take(feat).transpose(1, 2).contiguous()  # [B, F, N]
+    g = take(g)
+    d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]))[:, 0]
+    s = torch.rsqrt(torch.clamp_min(d, 1e-30))[:, None, :]  # [B, 1, N]
+    w_conf = entropy_confidence(g)[:, None, :]
+    diag = alpha * (d[:, None, :] + _DEGREE_EPS) * s * s + beta * w_conf + ridge
+
+    def matvec(v):  # [B, K, N]
+        return diag * v - alpha * s * affinity_matvec_t(feat_t, s * v)
+
+    rhs = w_conf * g.transpose(1, 2)
+    y = beta * _cg(matvec, rhs.contiguous(), cg_iters, cg_tol,
+                   M=lambda v: v / diag)
+    denom = torch.sum(y, dim=1, keepdim=True)
+    y = y / torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
+    inv = torch.argsort(order, dim=1)
+    y = y.transpose(1, 2)
+    return torch.gather(y, 1, inv[..., None].expand(-1, -1, y.shape[-1]))
+
+
 def propagate_batch(
     xyz: torch.Tensor, g: torch.Tensor, rgb: Optional[torch.Tensor] = None, *,
     alpha: float = 1.0, beta: float = 1.0, xyz_bandwidth: float = 1e3,
@@ -97,16 +178,19 @@ def propagate_batch(
 ) -> torch.Tensor:
     """Affinity build + LP solve. Returns Y_prob [B, N, K].
 
-    ShapeNet passes rgb=None: the reference feeds xyz twice
-    (ShapeNet_DGCNN_trainer.py:551).
+    Solvers: "cg" (dense affinity, factored CG) and "cg_matfree" (no
+    [N, N] array; the room-level mode). ShapeNet passes rgb=None: the
+    reference feeds xyz twice (ShapeNet_DGCNN_trainer.py:551).
     """
-    if solver != "cg":
+    solvers = {"cg": label_propagation_factored,
+               "cg_matfree": label_propagation_matfree}
+    if solver not in solvers:
         what = _NOT_PORTED.get(solver, "an unknown solver")
         raise NotImplementedError(
             f"LP solver {solver!r} is not ported yet: {what}")
     if rgb is None:
         rgb = xyz
-    return label_propagation_factored(
+    return solvers[solver](
         xyz.float(), g.float(), rgb.float(), alpha=alpha, beta=beta,
         xyz_bandwidth=xyz_bandwidth, rgb_bandwidth=rgb_bandwidth, ridge=ridge,
         cg_iters=cg_iters, cg_tol=cg_tol)

@@ -7,12 +7,13 @@ per-shape IoU (ShapeNet) or the global confusion mIoU (S3DIS) on the host.
 
 The model runs on ``device``, the card by default; a caller that wants the
 CPU says so (``device="cpu"``). Not ported yet: the background prefetch
-thread, resuming Adam state, data parallelism and the S3DIS test path
-(``S3DISTrainer.test``, ``room_label_prop``; ROADMAP).
+thread, resuming Adam state and data parallelism (ROADMAP).
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -315,8 +316,8 @@ class ShapeNetTrainer(_TrainerBase):
 
 
 class S3DISTrainer(_TrainerBase):
-    """S3DIS semantic segmentation: training and validation
-    (S3DIS_DGCNN_trainer.py). ``dataset`` is a data/s3dis.py::S3DISDataset;
+    """S3DIS semantic segmentation: training, validation and the room-wise
+    test (S3DIS_DGCNN_trainer.py). ``dataset`` is a data/s3dis.py::S3DISDataset;
     the blocks of rooms in Area ``test_area`` are the validation split.
     ``pts_idx_list`` holds each block's labelled points (a [blocks, n]
     array, or one index array per block for the one-point-per-class
@@ -373,3 +374,120 @@ class S3DISTrainer(_TrainerBase):
                        b.seg[:b.valid])
         return (float(np.average(losses, weights=loss_w)) if losses else 0.0,
                 acc.accuracy, acc.miou, acc.iou)
+
+    def test(self, rooms: s3dis_data.S3DISTestRooms, *,
+             use_label_prop: Optional[bool] = None,
+             pred_dir: Optional[str] = None,
+             room_lp: bool = False) -> Dict[str, float]:
+        """Room-by-room block inference with label propagation and optional
+        per-room .mat dumps (S3DIS_DGCNN_trainer.py:499-584); returns the
+        confusion mIoU, accuracy and per-class IoU over every block point.
+
+        Each room's blocks run in chunks of ``batch_size``. The per-block
+        LP (the reference's) refines each chunk's blocks as one CG, whose
+        norms span the chunk, so the chunking is part of the result. With
+        ``room_lp``, one matrix-free LP over every block point of the room
+        in room coordinates (:meth:`room_label_prop`) replaces it.
+        """
+        if use_label_prop is None:
+            use_label_prop = self.style == "Full"
+        if room_lp and not use_label_prop:
+            warnings.warn(
+                "room_lp=True has no effect when use_label_prop is False "
+                "(label propagation only runs for the Full style): falling "
+                "back to plain per-block argmax", stacklevel=2)
+        lp = self.cfg.labelprop
+        conf = ConfusionAccumulator(self.num_classes)
+        bs = max(self.cfg.train.batch_size, 1)
+        logits_fn = make_eval_logits_fn(self.model)
+        for r in range(len(rooms)):
+            blocks, labels, path, room_max = rooms.load_room(r, rng=self.np_rng)
+            room_prob = []
+            for start in range(0, len(blocks), bs):
+                # the eval forward is per block: the reference pads the last
+                # chunk to its compiled shape, which changes no real block
+                chunk = torch.from_numpy(blocks[start:start + bs]).to(self.device)
+                with torch.inference_mode():
+                    prob = torch.softmax(logits_fn(chunk), dim=-1)
+                    if use_label_prop and not room_lp:
+                        prob = propagate_batch(
+                            chunk[..., 0:3], prob, chunk[..., 3:6],
+                            alpha=lp.alpha, beta=lp.beta,
+                            xyz_bandwidth=lp.xyz_bandwidth,
+                            rgb_bandwidth=lp.rgb_bandwidth, ridge=lp.ridge,
+                            solver=lp.solver, cg_iters=lp.cg_iters,
+                            cg_tol=lp.cg_tol)
+                room_prob.append(prob.cpu().numpy())
+            if not room_prob:
+                continue
+            prob = np.concatenate(room_prob)
+            if room_lp and use_label_prop:
+                pred = self.room_label_prop(blocks, prob, room_max)
+            else:
+                pred = prob.argmax(-1)
+            conf.update(pred, labels)
+            if pred_dir is not None:
+                self._dump_room(pred_dir, path, blocks, pred, labels)
+        return {"miou": conf.miou, "accuracy": conf.accuracy,
+                "per_class_iou": conf.iou}
+
+    def room_label_prop(self, blocks: np.ndarray, prob: np.ndarray,
+                        room_max: np.ndarray) -> np.ndarray:
+        """One label propagation across all blocks of a room.
+
+        Every block point joins one cloud in room coordinates (channels 6:9
+        times ``room_max``) for one matrix-free CG (solver "cg_matfree"),
+        so label mass flows across block boundaries. The blocks are padded
+        to a multiple of 8 with blocks of uniform probabilities 2 m beyond
+        the room on every axis, as the reference pads them: there the
+        affinity to any room point underflows to 0, but the pads sit in the
+        CG's batch-global vector, so they are kept for parity. They must
+        stay near the room (the centred Gram's cancellation,
+        propagate/label_prop.py::check_gram_cancellation).
+
+        Args:
+          blocks: [K, N, 9] room blocks (room_to_blocks layout).
+          prob: [K, N, C] per-block softmax probabilities.
+          room_max: [3] room extent in metres (load_room's scale).
+
+        Returns:
+          [K, N] predictions.
+        """
+        lp = self.cfg.labelprop
+        k_blocks, n, c = prob.shape
+        k_pad = -(-k_blocks // 8) * 8
+        xyz = (blocks[:, :, 6:9] * room_max).astype(np.float32)
+        rgb = blocks[:, :, 3:6].astype(np.float32)
+        prob = prob.astype(np.float32)
+        if k_pad > k_blocks:
+            extra = k_pad - k_blocks
+            pad_xyz = (np.asarray(room_max, np.float32) + 2.0).reshape(1, 1, 3)
+            xyz = np.concatenate(
+                [xyz, np.broadcast_to(pad_xyz, (extra, n, 3))])
+            rgb = np.concatenate([rgb, np.zeros((extra, n, 3), np.float32)])
+            prob = np.concatenate(
+                [prob, np.full((extra, n, c), 1.0 / c, np.float32)])
+        put = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a).reshape(1, -1, a.shape[-1])).to(self.device)
+        # the dense [N_room, N_room] affinity would not fit: only the
+        # matrix-free and point-sharded solvers reach room scale
+        solver = "sharded" if lp.solver == "sharded" else "cg_matfree"
+        with torch.inference_mode():
+            y = propagate_batch(
+                put(xyz), put(prob), put(rgb), alpha=lp.alpha, beta=lp.beta,
+                xyz_bandwidth=lp.xyz_bandwidth, rgb_bandwidth=lp.rgb_bandwidth,
+                ridge=lp.ridge, solver=solver, cg_iters=lp.cg_iters,
+                cg_tol=lp.cg_tol)
+        pred = y[0].cpu().numpy().argmax(-1).reshape(k_pad, n)
+        return pred[:k_blocks]
+
+    @staticmethod
+    def _dump_room(pred_dir: str, room_path: str, data, pred, gt) -> None:
+        """Per-room {data, pred, gt} .mat file (S3DIS_DGCNN_trainer.py:
+        573-580), named after the room file."""
+        import scipy.io
+
+        os.makedirs(pred_dir, exist_ok=True)
+        name = os.path.splitext(os.path.basename(room_path))[0]
+        scipy.io.savemat(os.path.join(pred_dir, f"{name}_pred_gt.mat"),
+                         {"data": data, "pred": pred, "gt": gt})
