@@ -924,20 +924,6 @@ def check_knn_wgather(gen, report):
 LN, LK = 131072, 13  # one room of bench.py's s3dis_room_lp_131072, 13 classes
 
 
-def room_features(xyz, rgb):
-    """The room LP's features on the card: sqrt(1e3) xyz | sqrt(10) rgb,
-    centred, Morton-sorted (propagate/label_prop.py), [1, 6, N]."""
-    import torch
-
-    from weaksuppointcloudseg_tpu_torch.ops import affinity
-
-    x = torch.from_numpy(xyz).cuda()
-    feat = torch.cat([x * 1e3 ** 0.5, torch.from_numpy(rgb).cuda() * 10 ** 0.5], -1)
-    feat = feat - feat.mean(1, keepdim=True)
-    order = affinity.morton_order(x).long()[0]
-    return feat[:, order].transpose(1, 2).contiguous()
-
-
 def check_affinity(gen, report):
     """B10 and B17 against their plain versions (every pair, row tiles of
     cuBLAS f32) at one room of bench.py's s3dis_room_lp_131072 (B=1,
@@ -947,21 +933,44 @@ def check_affinity(gen, report):
     exp(-d^2) turns into that relative error on each affinity; kernel and
     plain version each round their own Gram) plus 1e-5 of sum_j W_ij |u_j|
     (expf's 2 ulp, another summation order), plus exp(-30) sum |u| for the
-    skipped pairs. Prints the share of tile pairs skipped (must be > 0)
-    and the kernel without skipping."""
+    skipped pairs. B10 is also held there at the degree pass's K=1 on
+    u = ones. Prints the share of tile pairs skipped (must be > 0) and the
+    kernel without skipping. The kernel times take the tile mask built
+    once, as the room LP does (its build is timed on its own)."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import affinity
     from weaksuppointcloudseg_tpu_torch.propagate import label_prop
 
     xyz, _, rgb = bench_room(LN)
-    feat_t = room_features(xyz, rgb)
+    feat_t, _ = label_prop.matfree_features(torch.from_numpy(xyz).cuda(),
+                                            torch.from_numpy(rgb).cuda())
     ut = torch.randn((1, LK, LN), generator=gen, device="cuda")
     bound_rel = label_prop.check_gram_cancellation(feat_t.transpose(1, 2))
-    mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE, 30.0)
+    mask = affinity.tile_mask(feat_t)
     ordered = float(mask.sum().item()) * affinity.TILE ** 2
     skipped = 1.0 - mask.float().mean().item()
     require(skipped > 0, "room LP: no tile pair skipped")
+    mask_ms = timed_ms(lambda: affinity.tile_mask(feat_t))
+
+    def tolerance(ref, feat, u):
+        want, mags = ref(feat, u), ref(feat, u.abs())
+        tol = (2 * bound_rel + 1e-5) * mags + float(np.exp(-30.0)) * u.abs().sum().item()
+        return want, mags, tol
+
+    # the degree pass's launch, K=1 on u = ones, as label_propagation_matfree
+    # makes it (the kernel's K=1 instance)
+    ones = torch.ones((1, 1, LN), device="cuda")
+    got = affinity.affinity_matvec_t(feat_t, ones)
+    want, _, tol = tolerance(affinity.affinity_matvec_t_ref, feat_t, ones)
+    err = ((got - want).abs() / tol).max().item()
+    require(err <= 1.0, f"B10 degree pass (K=1): {err:.3f} of the tolerance")
+    ms_deg = timed_ms(lambda: affinity.affinity_matvec_t(feat_t, ones, mask=mask))
+    print(f"  affinity_matvec_t (B10) degree pass B=1 N={LN} K=1 (u = ones): "
+          f"max rel err {((got - want).abs() / want).max().item():.2e} "
+          f"({err:.3f} of the tolerance), degrees {want.min().item():.3f}.."
+          f"{want.max().item():.1f}; kernel {ms_deg:.3f} ms")
+    del got, want, tol
     for name, transposed in (("affinity_matvec_t (B10)", True),
                              ("affinity_matvec (B17)", False)):
         if transposed:
@@ -971,10 +980,10 @@ def check_affinity(gen, report):
             feat, u = feat_t.transpose(1, 2).contiguous(), ut.transpose(1, 2).contiguous()
             fn, ref = affinity.affinity_matvec, affinity.affinity_matvec_ref
         got = fn(feat, u)
-        full = fn(feat, u, skip_cutoff=None)
-        want, mags = ref(feat, u), ref(feat, u.abs())
+        every = affinity.tile_mask(feat_t, None)
+        full = fn(feat, u, mask=every)
+        want, mags, tol = tolerance(ref, feat, u)
         torch.cuda.synchronize()
-        tol = (2 * bound_rel + 1e-5) * mags + float(np.exp(-30.0)) * u.abs().sum().item()
         err = ((got - want).abs() / tol).max().item()
         err_full = ((full - want).abs() / tol).max().item()
         share = ((got - want).abs() / mags).max().item()
@@ -982,8 +991,8 @@ def check_affinity(gen, report):
         del want, mags, full
         require(err <= 1.0 and err_full <= 1.0,
                 f"{name}: {err:.3f} / {err_full:.3f} of the tolerance")
-        ms = timed_ms(lambda: fn(feat, u))
-        ms_full = timed_ms(lambda: fn(feat, u, skip_cutoff=None), reps=3)
+        ms = timed_ms(lambda: fn(feat, u, mask=mask))
+        ms_full = timed_ms(lambda: fn(feat, u, mask=every), reps=3)
         plain_ms = timed_ms(lambda: ref(feat, u), reps=3, warmup=1)
         io = nbytes(feat, u, got)
         bnd = bound(affinity_flops(1, LN, 6, LK, ordered), "f32", io)
@@ -992,7 +1001,8 @@ def check_affinity(gen, report):
               f"max err {share:.2e} of sum |W||u| ({err:.3f} of the "
               f"tolerance, Gram bound {bound_rel:.2e}); tile pairs skipped "
               f"{100 * skipped:.2f}%; kernel {ms:.3f} ms, without skipping "
-              f"{ms_full:.3f} ms, plain {plain_ms:.3f} ms; bound over the "
+              f"{ms_full:.3f} ms, plain {plain_ms:.3f} ms, tile mask build "
+              f"{mask_ms:.3f} ms; bound over the "
               f"surviving pairs {bnd[0]:.4f} ms ({bnd[1]}), every pair "
               f"{bnd_full[0]:.4f} ms; {100 * bnd[0] / ms:.1f}% of bound")
         report.append(kernel_row(
@@ -1972,16 +1982,26 @@ def phase_s3dis_test(report) -> None:
     device_breakdown(lambda: label_prop.propagate_batch(*room, solver="cg_matfree"),
                      card, runs=2, what="room LP")
 
-    # the room LP on the card against the CPU's plain version, on the
-    # first 4096 points of the room: probabilities within 1e-3 (the CG's
-    # f32 error level), argmax agreement >= 99.9%
-    small = [t[:, :4096] for t in room]
+    # the room LP on the card against the CPU's plain version on a compact
+    # part of the room at its full density: 4096 consecutive points in
+    # Morton order (about 4 x 2 x 0.75 m). Probabilities within 1e-3 (the
+    # CG's f32 error level), argmax agreement >= 99.9%; and the LP must move
+    # its input there (>= 1% of argmaxes changed on both devices; 1.95% on
+    # the CPU), or agreement would not show that B10 coupled any points
+    part = affinity.morton_order(room[0]).long()[0, :4096]
+    small = [t[:, part] for t in room]
     got = label_prop.propagate_batch(*small, solver="cg_matfree").cpu()
     want = label_prop.propagate_batch(*[t.cpu() for t in small], solver="cg_matfree")
     dy = (got - want).abs().max().item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    print(f"  room LP on 4096 points, card vs CPU plain: max |dy| {dy:.2e}, "
-          f"argmax agreement {agree:.5f}")
+    g_arg = small[1].argmax(-1).cpu()
+    changed = [(y.argmax(-1) != g_arg).float().mean().item() for y in (got, want)]
+    moved = (got - small[1].cpu()).abs().max().item()
+    print(f"  room LP on 4096 Morton-consecutive points, card vs CPU plain: "
+          f"max |dy| {dy:.2e}, argmax agreement {agree:.5f}; argmaxes the LP "
+          f"changed {changed[0]:.4f} (card) {changed[1]:.4f} (CPU), max "
+          f"|y - g| {moved:.3f}")
+    require(min(changed) >= 0.01, "the room LP barely moved its input")
     require(dy <= 1e-3 and agree >= 0.999, "the card's room LP disagrees")
 
 

@@ -57,14 +57,11 @@ def surviving_pairs() -> float:
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import affinity
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
 
     xyz, _, rgb = (torch.from_numpy(a) for a in bench_room(LN))
-    feat = torch.cat([xyz * 1e3 ** 0.5, rgb * 10 ** 0.5], -1)
-    feat = feat - feat.mean(1, keepdim=True)
-    order = affinity.morton_order(xyz).long()[0]
-    feat_t = feat[:, order].transpose(1, 2).contiguous()
-    mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE,
-                                affinity.SKIP_CUTOFF)
+    feat_t, _ = label_prop.matfree_features(xyz, rgb)
+    mask = affinity.tile_mask(feat_t)
     return float(mask.sum()) * affinity.TILE ** 2
 
 

@@ -56,8 +56,7 @@ def test_b10_plain_matches_pallas(b, n, k, tile, cutoff):
     want = np.asarray(jap.affinity_matvec_pallas_t(
         jnp.asarray(feat_t), jnp.asarray(ut), row_tile=tile, col_tile=tile,
         skip_cutoff=cutoff, interpret=True))
-    got = affinity.affinity_matvec_t(torch.tensor(feat_t), torch.tensor(ut),
-                                     skip_cutoff=cutoff).numpy()
+    got = affinity.affinity_matvec_t(torch.tensor(feat_t), torch.tensor(ut)).numpy()
     assert got.shape == (b, k, n)
     assert rel_err(got, want) < 1e-5
 
@@ -177,7 +176,8 @@ def test_preconditioned_cg_matches_jax():
 
 def room_cloud(rng, n, size=(3.0, 2.0, 2.5)):
     """Points on a floor, two walls and in the volume of a small room, rgb
-    in [0, 1], and probabilities of a sharpness like a trained model's."""
+    in [0, 1] varying smoothly over the room as a scan's colours do, and
+    probabilities of a sharpness like a trained model's."""
     n_surf = int(n * 0.7)
     xy = rng.uniform(0, 1, (n_surf, 2)) * size[:2]
     which = rng.integers(0, 3, n_surf)
@@ -186,7 +186,8 @@ def room_cloud(rng, n, size=(3.0, 2.0, 2.5)):
     surf = np.stack([x, xy[:, 1], z], -1)
     inner = rng.uniform(0, 1, (n - n_surf, 3)) * size
     xyz = np.concatenate([surf, inner]).astype(np.float32)[None]
-    rgb = rng.uniform(0, 1, (1, n, 3)).astype(np.float32)
+    rgb = (0.5 + 0.2 * np.sin(2.0 * xyz)
+           + rng.normal(0, 0.03, xyz.shape)).astype(np.float32)
     z = rng.standard_normal((1, n, 13)) * 3.0
     g = np.exp(z - z.max(-1, keepdims=True))
     return xyz, (g / g.sum(-1, keepdims=True)).astype(np.float32), rgb
@@ -199,9 +200,12 @@ def test_matfree_lp_matches_jax(b, n):
     here in Morton order with the affinities summed in another order: the
     iterates drift apart by rounding that the CG's own error level
     (tol 1e-5 relative on the residual) bounds, so the probabilities are
-    held to 2e-4 absolute and the argmax to >= 99.9% agreement."""
+    held to 2e-4 absolute and the argmax to >= 99.9% agreement. The cloud
+    is dense (a 1 x 0.6 x 0.8 m corner) at the default bandwidths, so that
+    the LP really couples points: it must change >= 5% of the argmaxes
+    (7-11% at these seeds), or agreement would show nothing."""
     rng = np.random.default_rng(7 + b)
-    clouds = [room_cloud(rng, n) for _ in range(b)]
+    clouds = [room_cloud(rng, n, size=(1.0, 0.6, 0.8)) for _ in range(b)]
     xyz, g, rgb = (np.concatenate(c) for c in zip(*clouds))
     want = np.asarray(jlp.label_propagation_matfree(
         jnp.asarray(xyz), jnp.asarray(g), jnp.asarray(rgb)))
@@ -210,9 +214,28 @@ def test_matfree_lp_matches_jax(b, n):
                                      solver="cg_matfree").numpy()
     err = np.abs(got - want).max()
     agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    changed = (got.argmax(-1) != g.argmax(-1)).mean()
     assert err <= 2e-4, err
     assert agree >= 0.999, agree
+    assert changed >= 0.05, changed
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-5)
+
+
+def test_matfree_lp_builds_the_tile_mask_once(monkeypatch):
+    """The CG applies W of the same features in every matvec, so the LP
+    builds B10's tile mask once (matfree_features' sorted features) and
+    hands it to every launch."""
+    calls = []
+    mask_fn = affinity.skip_mask_t
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return mask_fn(*a, **kw)
+    monkeypatch.setattr(affinity, "skip_mask_t", counting)
+    xyz, g, rgb = room_cloud(np.random.default_rng(10), 700)
+    y = label_prop.propagate_batch(torch.tensor(xyz), torch.tensor(g),
+                                   torch.tensor(rgb), solver="cg_matfree")
+    assert len(calls) == 1 and y.shape == (1, 700, 13)
 
 
 def pad_room(xyz, g, rgb, offset, blocks=8):

@@ -730,8 +730,10 @@ def test_affinity_kernel_skips_far_tiles(gen):
     mask = affinity.skip_mask_t(feat_t, affinity.TILE, affinity.TILE, 30.0)
     assert 0.3 < 1.0 - mask.float().mean().item() < 1.0
     got = affinity.affinity_matvec_t(feat_t, ut)
-    full = affinity.affinity_matvec_t(feat_t, ut, skip_cutoff=None)
+    full = affinity.affinity_matvec_t(feat_t, ut, mask=affinity.tile_mask(feat_t, None))
+    given = affinity.affinity_matvec_t(feat_t, ut, mask=affinity.tile_mask(feat_t))
     torch.cuda.synchronize()
+    assert torch.equal(given, got)
     assert affinity_errors(got, feat_t, ut, True) <= 1.0
     assert affinity_errors(full, feat_t, ut, True) <= 1.0
     assert (got - full).abs().max().item() <= 1e-12 * ut.abs().sum().item() + 1e-6 * (
@@ -739,13 +741,17 @@ def test_affinity_kernel_skips_far_tiles(gen):
 
 
 def test_affinity_kernel_refuses(gen):
-    """K above 16, F above 6, and operands on two devices raise."""
+    """K above 16, F above 6, a tile mask of another shape, and operands
+    on two devices raise."""
     feat_t = torch.rand((1, 6, 300), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="K=17"):
         affinity.affinity_matvec_t(feat_t, torch.ones((1, 17, 300), device="cuda"))
     with pytest.raises(ValueError, match="F=7"):
         affinity.affinity_matvec(torch.rand((1, 300, 7), device="cuda"),
                                  torch.ones((1, 300, 2), device="cuda"))
+    with pytest.raises(ValueError, match="mask: shape"):
+        affinity.affinity_matvec_t(feat_t, torch.ones((1, 2, 300), device="cuda"),
+                                   mask=affinity.tile_mask(feat_t[..., :200]))
     with pytest.raises(ValueError, match="expected cuda"):
         affinity.affinity_matvec_t(feat_t, torch.ones((1, 2, 300)))
     with pytest.raises(RuntimeError):
@@ -754,29 +760,40 @@ def test_affinity_kernel_refuses(gen):
 
 def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
     """label_propagation_matfree on the card (B10, tile skipping) against
-    the CPU's plain version on a 3000-point room of sharp probabilities:
-    probabilities within 1e-3 (the CG's f32 error level), argmax agreement
-    >= 99.9%; B10 launches once for the degrees and once per CG
-    iteration."""
+    the CPU's plain version on 3000 points of a dense 1 x 0.6 x 0.2 m slab
+    with colours varying smoothly over it, where the LP couples points
+    (it must change >= 3% of the argmaxes on both devices): probabilities
+    within 1e-3 (the CG's f32 error level), argmax agreement >= 99.9%;
+    B10 launches once for the degrees and once per CG iteration, and its
+    tile mask is built once."""
     xyz = torch.rand((1, 3000, 3), generator=gen, device="cuda") * torch.tensor(
-        [3.0, 2.0, 0.2], device="cuda")
-    rgb = torch.rand((1, 3000, 3), generator=gen, device="cuda")
+        [1.0, 0.6, 0.2], device="cuda")
+    rgb = (0.5 + 0.2 * torch.sin(2.0 * xyz)
+           + 0.03 * torch.randn((1, 3000, 3), generator=gen, device="cuda"))
     g = torch.softmax(torch.randn((1, 3000, 13), generator=gen, device="cuda")
                       * 3.0, -1)
-    calls = []
-    cg = label_prop._cg
+    calls, masks = [], []
+    cg, mask_fn = label_prop._cg, affinity.skip_mask_t
 
     def counting_cg(matvec, *a, **kw):
         def mv(v):
             calls.append(1)
             return matvec(v)
         return cg(mv, *a, **kw)
+
+    def counting_mask(*a, **kw):
+        masks.append(1)
+        return mask_fn(*a, **kw)
     monkeypatch.setattr(label_prop, "_cg", counting_cg)
+    monkeypatch.setattr(affinity, "skip_mask_t", counting_mask)
     before = affinity.affinity_matvec_t.launches
     got = label_prop.propagate_batch(xyz, g, rgb, solver="cg_matfree")
     torch.cuda.synchronize()
     assert affinity.affinity_matvec_t.launches - before == 1 + len(calls) > 1
+    assert len(masks) == 1
     want = label_prop.propagate_batch(xyz.cpu(), g.cpu(), rgb.cpu(),
                                       solver="cg_matfree")
+    for y in (got.cpu(), want):
+        assert (y.argmax(-1) != g.argmax(-1).cpu()).float().mean().item() >= 0.03
     assert (got.cpu() - want).abs().max().item() <= 1e-3
     assert (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item() >= 0.999

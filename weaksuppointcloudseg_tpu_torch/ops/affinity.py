@@ -13,10 +13,10 @@ over all points j of the same sample, no [N, N] array ever in memory.
   (affinity_matvec_pallas).
 
 Tile skipping: the kernel computes a (128-row tile, 128-column tile) pair
-only where :func:`skip_mask_t` keeps it, that is where the squared
+only where its :func:`tile_mask` keeps it, that is where the squared
 distance between the two tiles' feature bounding boxes is at most
-``skip_cutoff``. The bound is exact: every affinity of a skipped pair is
-<= exp(-skip_cutoff) (9.4e-14 at 30). Point order changes how many pairs
+``SKIP_CUTOFF`` (30). The bound is exact: every affinity of a skipped
+pair is <= exp(-30) = 9.4e-14. Point order changes how many pairs
 are skipped, never the result; :func:`morton_order` gives spatially near
 points neighbouring positions.
 
@@ -85,6 +85,20 @@ def skip_mask_t(feat_t: torch.Tensor, row_tile: int, col_tile: int,
     return d_lb <= cutoff
 
 
+def tile_mask(feat_t: torch.Tensor,
+              skip_cutoff: Optional[float] = SKIP_CUTOFF) -> torch.Tensor:
+    """The kernel's tile mask of feat_t [B, F, N]: uint8 [B, n_tiles,
+    n_tiles] of :func:`skip_mask_t` at its 128-point tile, all ones when
+    ``skip_cutoff`` is None (every pair computed). A caller that applies W
+    of the same features many times builds it once and passes it to the
+    wrappers."""
+    b, _, n = feat_t.shape
+    nt = -(-n // TILE)
+    if skip_cutoff is None:
+        return torch.ones((b, nt, nt), dtype=torch.uint8, device=feat_t.device)
+    return skip_mask_t(feat_t, TILE, TILE, float(skip_cutoff)).to(torch.uint8)
+
+
 def affinity_matvec_ref(feat: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`affinity_matvec` (same contract),
     one row tile of affinities at a time, nothing skipped."""
@@ -109,7 +123,7 @@ def affinity_matvec_t_ref(feat_t: torch.Tensor, ut: torch.Tensor) -> torch.Tenso
 
 
 def _launch(fn, feat: torch.Tensor, u: torch.Tensor,
-            skip_cutoff: Optional[float], transposed: bool) -> torch.Tensor:
+            mask: Optional[torch.Tensor], transposed: bool) -> torch.Tensor:
     dev = feat.device
     if transposed:
         b, f, n = feat.shape
@@ -124,11 +138,10 @@ def _launch(fn, feat: torch.Tensor, u: torch.Tensor,
     if not (1 <= k <= K_MAX and 1 <= f <= F_MAX):
         raise ValueError(f"{fn.__name__}: K={k} must be in [1, {K_MAX}] and "
                          f"F={f} in [1, {F_MAX}]")
+    if mask is None:
+        mask = tile_mask(feat_t)
     nt = -(-n // TILE)
-    if skip_cutoff is None:
-        mask = torch.ones((b, nt, nt), dtype=torch.uint8, device=dev)
-    else:
-        mask = skip_mask_t(feat_t, TILE, TILE, float(skip_cutoff)).to(torch.uint8)
+    _build.check_operand(mask, "mask", torch.uint8, dev, (b, nt, nt))
     out = torch.empty(u_shape, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -141,15 +154,15 @@ def _launch(fn, feat: torch.Tensor, u: torch.Tensor,
 
 
 def affinity_matvec_t(feat_t: torch.Tensor, ut: torch.Tensor, *,
-                      skip_cutoff: Optional[float] = SKIP_CUTOFF) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B10: out^T [B, K, N] = (exp(-clamped pdist2(feat)) @ u)^T.
 
     Args:
       feat_t: f32 [B, F, N] features, already scaled by the bandwidths.
       ut: f32 [B, K, N].
-      skip_cutoff: skip tile pairs whose bounding boxes are farther apart
-        than this squared distance; None computes every pair. The CPU's
-        plain version computes every pair.
+      mask: the tile pairs to compute, :func:`tile_mask` of feat_t; built
+        here at ``SKIP_CUTOFF`` when None. The CPU's plain version
+        computes every pair.
 
     On CUDA: 1 <= K <= 16, 1 <= F <= 6, contiguous operands, any N.
     """
@@ -157,18 +170,19 @@ def affinity_matvec_t(feat_t: torch.Tensor, ut: torch.Tensor, *,
         return affinity_matvec_t_ref(feat_t, ut)
     if feat_t.device.type != "cuda":
         raise ValueError(f"affinity_matvec_t: unsupported device {feat_t.device}")
-    return _launch(affinity_matvec_t, feat_t, ut, skip_cutoff, True)
+    return _launch(affinity_matvec_t, feat_t, ut, mask, True)
 
 
 def affinity_matvec(feat: torch.Tensor, u: torch.Tensor, *,
-                    skip_cutoff: Optional[float] = SKIP_CUTOFF) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B17: out [B, N, K] = exp(-clamped pdist2(feat)) @ u for feat f32
-    [B, N, F] and u f32 [B, N, K]; otherwise as :func:`affinity_matvec_t`."""
+    [B, N, F] and u f32 [B, N, K]; otherwise as :func:`affinity_matvec_t`
+    (``mask`` is the tile mask of feat^T)."""
     if feat.device.type == "cpu":
         return affinity_matvec_ref(feat, u)
     if feat.device.type != "cuda":
         raise ValueError(f"affinity_matvec: unsupported device {feat.device}")
-    return _launch(affinity_matvec, feat, u, skip_cutoff, False)
+    return _launch(affinity_matvec, feat, u, mask, False)
 
 
 affinity_matvec_t.launches = 0  # kernel launches since the last reset

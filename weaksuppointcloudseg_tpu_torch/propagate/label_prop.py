@@ -31,6 +31,7 @@ import torch
 from weaksuppointcloudseg_tpu_torch.ops.affinity import (
     affinity_matvec_t,
     morton_order,
+    tile_mask,
 )
 from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
     product_kernel_weights,
@@ -125,6 +126,26 @@ def check_gram_cancellation(feat: torch.Tensor) -> float:
     return bound
 
 
+def matfree_features(
+    xyz: torch.Tensor, rgb: torch.Tensor, *, xyz_bandwidth: float = 1e3,
+    rgb_bandwidth: float = 1e1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The features kernel B10 sees in :func:`label_propagation_matfree`:
+    the xyz and rgb kernels folded into one Gaussian of (sqrt(bw_xyz) xyz |
+    sqrt(bw_rgb) rgb), centred per sample (distances are translation-
+    invariant, and centring shrinks the f32 cancellation of the Gram:
+    :func:`check_gram_cancellation`, which it runs), Morton-sorted so that
+    B10 skips far tile pairs. xyz [B, N, Cx], rgb [B, N, Cr] -> (feat_t
+    [B, Cx + Cr, N] in the sorted order, order [B, N] int64)."""
+    feat = torch.cat([xyz * math.sqrt(xyz_bandwidth),
+                      rgb * math.sqrt(rgb_bandwidth)], dim=-1)
+    feat = feat - torch.mean(feat, dim=1, keepdim=True)
+    check_gram_cancellation(feat)
+    order = morton_order(xyz).long()
+    feat = torch.gather(feat, 1, order[..., None].expand(-1, -1, feat.shape[-1]))
+    return feat.transpose(1, 2).contiguous(), order
+
+
 def label_propagation_matfree(
     xyz: torch.Tensor, g: torch.Tensor, rgb: torch.Tensor, *,
     alpha: float = 1.0, beta: float = 1.0, xyz_bandwidth: float = 1e3,
@@ -135,30 +156,23 @@ def label_propagation_matfree(
     every matvec (kernel B10), so memory stays O(N). xyz [B,N,Cx], g
     [B,N,K] probabilities, rgb [B,N,Cr] -> Y_prob [B, N, K] f32.
 
-    The xyz and rgb kernels fold into one Gaussian of the 6-channel
-    features (sqrt(bw_xyz) xyz | sqrt(bw_rgb) rgb), centred per sample
-    (distances are translation-invariant, and centring shrinks the f32
-    cancellation of the Gram: :func:`check_gram_cancellation`). The points
-    are Morton-sorted so that B10 skips far tile pairs; the CG runs in that
-    order in the [B, K, N] layout, Jacobi-preconditioned (M = v / diag),
-    and the result is unsorted at the end. Padding the CG to tiles, as the
-    reference's kernel needs, is not needed here.
+    The features are :func:`matfree_features`; B10's tile mask is built
+    once for them. The CG runs in the Morton order in the [B, K, N] layout,
+    Jacobi-preconditioned (M = v / diag), and the result is unsorted at the
+    end. Padding the CG to tiles, as the reference's kernel needs, is not
+    needed here.
     """
-    feat = torch.cat([xyz * math.sqrt(xyz_bandwidth),
-                      rgb * math.sqrt(rgb_bandwidth)], dim=-1)
-    feat = feat - torch.mean(feat, dim=1, keepdim=True)
-    check_gram_cancellation(feat)
-    order = morton_order(xyz).long()
-    take = lambda a: torch.gather(a, 1, order[..., None].expand(-1, -1, a.shape[-1]))
-    feat_t = take(feat).transpose(1, 2).contiguous()  # [B, F, N]
-    g = take(g)
-    d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]))[:, 0]
+    feat_t, order = matfree_features(xyz, rgb, xyz_bandwidth=xyz_bandwidth,
+                                     rgb_bandwidth=rgb_bandwidth)
+    mask = tile_mask(feat_t)
+    g = torch.gather(g, 1, order[..., None].expand(-1, -1, g.shape[-1]))
+    d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]), mask=mask)[:, 0]
     s = torch.rsqrt(torch.clamp_min(d, 1e-30))[:, None, :]  # [B, 1, N]
     w_conf = entropy_confidence(g)[:, None, :]
     diag = alpha * (d[:, None, :] + _DEGREE_EPS) * s * s + beta * w_conf + ridge
 
     def matvec(v):  # [B, K, N]
-        return diag * v - alpha * s * affinity_matvec_t(feat_t, s * v)
+        return diag * v - alpha * s * affinity_matvec_t(feat_t, s * v, mask=mask)
 
     rhs = w_conf * g.transpose(1, 2)
     y = beta * _cg(matvec, rhs.contiguous(), cg_iters, cg_tol,
