@@ -50,9 +50,26 @@ Phases:
      ``s3dis_room_lp_131072`` with its CG iterations, peak memory, device
      time by kernel, and the room LP against the CPU on 4096 points.
 
+  9. static-graph mode (``--StaticGraph``): the bf16 Full-style training
+     CLIs of ShapeNet (phase 6's shape and split) and S3DIS (phase 7's),
+     with the launch counts of one graph per forward (B1 once, B11 in
+     every other EdgeConv stage, no B12), ``shapenet_full_train_
+     throughput_static_graph`` and ``s3dis_full_train_throughput_static_
+     graph`` with peak memory, device time by kernel and idle share; one
+     static bf16 step against the CPU replaying the card's graph and
+     moments; one f32 static step (B12 once per forward, B13); the
+     ShapeNet test CLI with ``--StaticGraph`` (B1 once and B11 three
+     times per batch);
+ 10. convergence: the four synthetic recipes of
+     ``utils/synth_convergence.py`` (ShapeNet f32 exact, bf16 fast, bf16
+     fast static graph; S3DIS bf16 fast) at the reference's calibrated
+     size, held to its bars.
+
 Phase 2 also holds B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
-skipped.
+skipped, and B11 (the first conv on a given graph) to B1's output at
+B1's own graph and to its plain version at the static stages' shapes.
+Each phase prints its wall seconds.
 
 Prints a JSON line of per-kernel results, then the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
@@ -259,6 +276,69 @@ def check_knn_edge(gen, report):
         "knn_edge (B1)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn_edge.cu",
         "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:610", max_err, ms,
         plain_ms, bnd))
+
+
+def check_knn_edge_pre(gen, report):
+    """B11 (the first conv on a given graph) at the static-graph stage
+    shapes: ShapeNet training (B=64, N=2048) and S3DIS (B=28, N=4096),
+    k=20, C=64, on the graph B1 selects on 3 coordinates (fast mode, as
+    the static path's producer). Fed B1's own indices, y1 and the
+    k-extrema must equal B1's bit for bit (the same add and one bf16
+    rounding) and the plain version's; the moments within 1e-5 of the sum
+    of magnitudes (f32 atomics in another order)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv
+
+    row, max_err = None, 0.0
+    for b, n, what in ((TB, TN, "ShapeNet training"), (RB, RN, "S3DIS")):
+        g = bf16_randn(gen, (b, n, 3))
+        v = bf16_randn(gen, (b, n, 64))
+        u = bf16_randn(gen, (b, n, 64))
+        for minmax in (False, True):
+            b1 = edgeconv.knn_edge(g, v, u, K, fast=True, with_minmax=minmax)
+            idx = b1[0]
+            got = edgeconv.knn_edge_pre(idx, v, u, K, with_minmax=minmax)
+            ref = edgeconv.knn_edge_pre_ref(idx, v, u, K, with_minmax=minmax)
+            torch.cuda.synchronize()
+            require(0 <= int(idx.min()) and int(idx.max()) < n,
+                    "B1's graph leaves [0, N)")
+            y32 = ref[0].float()
+            mags = torch.stack([y32.abs().sum((0, 1, 2)),
+                                (y32 * y32).sum((0, 1, 2))])
+            mom_err = ((got[1] - ref[1]).abs() / mags).max().item()
+            max_err = max(max_err, (got[0].float() - y32).abs().max().item())
+            same_b1 = torch.equal(got[0], b1[1]) and all(
+                torch.equal(a, w) for a, w in zip(got[2:], b1[3:]))
+            same_ref = torch.equal(got[0], ref[0]) and all(
+                torch.equal(a, w) for a, w in zip(got[2:], ref[2:]))
+            print(f"  knn_edge_pre {what} B={b} N={n} k={K} C=64 minmax="
+                  f"{minmax}: y1/extrema equal to B1's {same_b1}, to the "
+                  f"plain version's {same_ref}; mom rel err {mom_err:.2e}")
+            require(same_b1 and same_ref, f"knn_edge_pre {what}: y1 differs")
+            require(mom_err <= 1e-5, f"knn_edge_pre {what}: moment error")
+        ms = timed_ms(lambda: edgeconv.knn_edge_pre(idx, v, u, K))
+        plain_ms = timed_ms(lambda: edgeconv.knn_edge_pre_ref(idx, v, u, K),
+                            reps=3)
+        bi = torch.arange(b, device="cuda")[:, None, None]
+        gather_ms = timed_ms(lambda: v[bi, idx.long()] + u[:, :, None, :])
+        y, mom = edgeconv.knn_edge_pre(idx, v, u, K)
+        # an add, a sum and a square-and-sum in f32 per y1 element; idx, v,
+        # u read once, y1 and the moments written once
+        bnd = bound(4.0 * y.numel(), "f32", nbytes(idx, v, u, y, mom))
+        print(f"  knn_edge_pre {what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% "
+              f"of bound; aside, not a port: v[bi, idx] + u in PyTorch (no "
+              f"rounding, no moments) {gather_ms:.3f} ms")
+        row = row or kernel_row(
+            "knn_edge_pre (B11)",
+            "weaksuppointcloudseg_tpu_torch/ops/csrc/knn_edge_pre.cu",
+            "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:862", 0.0, ms,
+            plain_ms, bnd)
+        del g, v, u, b1, got, ref, y32, y
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err  # y1 against the plain version's
+    report.append(row)
 
 
 def _bn_fold(gen, c, dev="cuda"):
@@ -1019,6 +1099,7 @@ def phase_kernels(report):
     gen.manual_seed(0)
     print("phase 2: kernels against their plain versions")
     check_knn_edge(gen, report)
+    check_knn_edge_pre(gen, report)
     check_conv_zmax(gen, report)
     check_conv_znmax(gen, report)
     check_knn(gen, report)
@@ -1585,32 +1666,25 @@ def check_path_launches(report, launches, absent, rows, what):
             row["launches"] = launches[row["name"]]
 
 
-def phase_full_train(report) -> None:
-    """bf16 Full-style ShapeNet training through the training CLI at
-    bench.py's shapenet_full_train_throughput shape: the fused blocks and
-    the fused smoothness loss over the transform stage's reused graph."""
-    import dataclasses
+def shapenet_full_cli(kernels, *flags):
+    """One epoch (3 steps, gate on) + evaluate (24 val clouds) of
+    ``cli.train_shapenet -sty Full --Precision bfloat16 --FastKNN`` at
+    bench.py's shape on phase 5's split, with ``flags`` added. Returns (the
+    CLI's result, the kernels' launches during the run, its wall s, the
+    dataset with both splits loaded)."""
     import tempfile
 
     import torch
 
-    from weaksuppointcloudseg_tpu_torch import configs
     from weaksuppointcloudseg_tpu_torch.cli import train_shapenet
-    from weaksuppointcloudseg_tpu_torch.data import sampling, shapenet
-    from weaksuppointcloudseg_tpu_torch.losses.weaksup import (
-        smooth_knn_laplacian_fused,
-    )
-    from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
+    from weaksuppointcloudseg_tpu_torch.data import shapenet
 
-    print(f"phase 6: bf16 Full-style ShapeNet training end to end "
-          f"(cli.train_shapenet), {PB} unique x 2 Siamese x {PN} points, "
-          f"fused blocks, knn_fast, smoothness over the reused graph")
     rng = np.random.default_rng(1)  # phase 5's split
     splits = {"train": synthetic_split(3 * PB, rng),
               "val": synthetic_split(24, rng)}
-    kernels = fused_train_kernels()
     argv = ["-m", "0.1", "-sty", "Full", "--Precision", "bfloat16",
-            "--FastKNN", "-bs", str(PB), "--Epoch", "1", "--Rampup", "0"]
+            "--FastKNN", "-bs", str(PB), "--Epoch", "1", "--Rampup", "0",
+            *flags]
     with tempfile.TemporaryDirectory() as tmp:
         write_meta(f"{tmp}/hdf5_data")
         # the script needs no h5py: only the h5 reader is replaced
@@ -1624,6 +1698,57 @@ def phase_full_train(report) -> None:
             ds = shapenet.ShapeNetDataset(tmp)
             ds.split("train")
             ds.split("val")
+    return res, launches, wall, ds
+
+
+def full_trainer(ds, preset: str, **model):
+    """A bf16 ``knn_fast`` Full-style trainer of ``preset`` (rampup 0) on
+    ``ds`` at bench.py's unique batch (PB clouds or RB // 2 blocks), with
+    ``model`` fields replaced, and one Siamese batch of its training split
+    on the card."""
+    import dataclasses
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.data import sampling
+    from weaksuppointcloudseg_tpu_torch.train.loop import (
+        S3DISTrainer,
+        ShapeNetTrainer,
+    )
+
+    base = getattr(configs, f"{preset}_config")()
+    ub = PB if preset == "shapenet" else RB // 2
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
+                                        knn_fast=True, **model),
+        train=dataclasses.replace(base.train, batch_size=ub, style="Full",
+                                  rampup=0))
+    if preset == "shapenet":
+        trainer = ShapeNetTrainer(cfg, ds, sampling.generate_sample_index(
+            3 * PB, PN, 0.1), seed=0, device="cuda")
+        b = next(ds.batches("train", ub))
+    else:
+        trainer = S3DISTrainer(cfg, ds, sampling.generate_sample_index(
+            len(ds.room_filelist), RN, 0.1), test_area=5, seed=0,
+            device="cuda")
+        b = next(ds.batches(trainer.train_idx, ub))
+    return trainer, trainer._to_device(trainer._assemble(
+        b, siamese=True, augment_pairs=True, full_mask=False))
+
+
+def phase_full_train(report) -> None:
+    """bf16 Full-style ShapeNet training through the training CLI at
+    bench.py's shapenet_full_train_throughput shape: the fused blocks and
+    the fused smoothness loss over the transform stage's reused graph."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.losses.weaksup import (
+        smooth_knn_laplacian_fused,
+    )
+
+    print(f"phase 6: bf16 Full-style ShapeNet training end to end "
+          f"(cli.train_shapenet), {PB} unique x 2 Siamese x {PN} points, "
+          f"fused blocks, knn_fast, smoothness over the reused graph")
+    res, launches, wall, ds = shapenet_full_cli(fused_train_kernels())
     print(f"  cli run (1 epoch: 3 steps + evaluate of 24 val clouds): "
           f"{wall:.2f} s wall (first calls included); launches {launches}")
     check_full_epoch(res)
@@ -1631,17 +1756,8 @@ def phase_full_train(report) -> None:
     check_path_launches(report, launches, "knn_wgather (B9)",
                         ("wgather_pre (B6)", "scatter_add_weighted (B6)"),
                         "the bf16 Full ShapeNet path")
-
-    base = configs.shapenet_config()
-    cfg = dataclasses.replace(
-        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
-                                        knn_fast=True),
-        train=dataclasses.replace(base.train, batch_size=PB, rampup=0))
-    pts_idx = sampling.generate_sample_index(3 * PB, PN, 0.1)
-    trainer = ShapeNetTrainer(cfg, ds, pts_idx, seed=0, device="cuda")
-    b = next(ds.batches("train", PB))
-    batch = trainer._to_device(trainer._assemble(
-        b, siamese=True, augment_pairs=True, full_mask=False))
+    trainer, batch = full_trainer(ds, "shapenet")
+    cfg = trainer.cfg
     time_fixed_batch(trainer, batch, PB * PN, "shapenet_full_train_throughput",
                      "bf16 Full train step")
 
@@ -1724,25 +1840,21 @@ def load_npz_shard(path):
         return z["data"].astype(np.float32), z["label"].astype(np.int32)
 
 
-def phase_s3dis_train(report) -> None:
-    """bf16 Full-style S3DIS training through the training CLI at bench.py's
-    s3dis_full_train_throughput shape: the fused blocks and the fused
-    smoothness loss over kernel B9 (backward B6)."""
-    import dataclasses
+def s3dis_full_cli(kernels, *flags):
+    """One epoch (3 steps, gate on) + evaluate (the Area_5 blocks) of
+    ``cli.train_s3dis -sty Full --Precision bfloat16 --FastKNN -ta 5`` at
+    bench.py's shape on an S3DIS split the script writes, with ``flags``
+    added. Returns (the CLI's result, the kernels' launches during the
+    run, its wall s, the dataset loaded)."""
     import tempfile
 
-    from weaksuppointcloudseg_tpu_torch import configs
     from weaksuppointcloudseg_tpu_torch.cli import train_s3dis
-    from weaksuppointcloudseg_tpu_torch.data import s3dis, sampling
-    from weaksuppointcloudseg_tpu_torch.train.loop import S3DISTrainer
+    from weaksuppointcloudseg_tpu_torch.data import s3dis
 
     ub = RB // 2
-    print(f"phase 7: bf16 Full-style S3DIS training end to end "
-          f"(cli.train_s3dis), {ub} unique x 2 Siamese x {RN} points, fused "
-          f"blocks, knn_fast, smoothness by B9")
-    kernels = fused_train_kernels()
     argv = ["-m", "0.1", "-sty", "Full", "-bs", str(ub), "--Precision",
-            "bfloat16", "--FastKNN", "-ta", "5", "--Epoch", "1", "--Rampup", "0"]
+            "bfloat16", "--FastKNN", "-ta", "5", "--Epoch", "1", "--Rampup", "0",
+            *flags]
     with tempfile.TemporaryDirectory() as tmp:
         data_path = f"{tmp}/indoor3d_sem_seg_hdf5_data"
         write_s3dis_split(data_path, np.random.default_rng(2), 3 * ub, ub)
@@ -1754,25 +1866,25 @@ def phase_s3dis_train(report) -> None:
             wall = time.perf_counter() - t0
             ds = s3dis.S3DISDataset(data_path)
             ds.load_all()
+    return res, launches, wall, ds
+
+
+def phase_s3dis_train(report) -> None:
+    """bf16 Full-style S3DIS training through the training CLI at bench.py's
+    s3dis_full_train_throughput shape: the fused blocks and the fused
+    smoothness loss over kernel B9 (backward B6)."""
+    ub = RB // 2
+    print(f"phase 7: bf16 Full-style S3DIS training end to end "
+          f"(cli.train_s3dis), {ub} unique x 2 Siamese x {RN} points, fused "
+          f"blocks, knn_fast, smoothness by B9")
+    res, launches, wall, ds = s3dis_full_cli(fused_train_kernels())
     print(f"  cli run (1 epoch: 3 steps + evaluate of {ub} Area_5 blocks): "
           f"{wall:.2f} s wall (first calls included); launches {launches}")
     check_full_epoch(res)
     # no transform stage, so no graph to reuse: B9 selects, no B6 gather
     check_path_launches(report, launches, "wgather_pre (B6)",
                         ("knn_wgather (B9)",), "the bf16 Full S3DIS path")
-
-    base = configs.s3dis_config()
-    cfg = dataclasses.replace(
-        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
-                                        knn_fast=True),
-        train=dataclasses.replace(base.train, batch_size=ub, style="Full",
-                                  rampup=0))
-    pts_idx = sampling.generate_sample_index(len(ds.room_filelist), RN, 0.1)
-    trainer = S3DISTrainer(cfg, ds, pts_idx, test_area=5, seed=0,
-                           device="cuda")
-    b = next(ds.batches(trainer.train_idx, ub))
-    batch = trainer._to_device(trainer._assemble(
-        b, siamese=True, augment_pairs=True, full_mask=False))
+    trainer, batch = full_trainer(ds, "s3dis")
     time_fixed_batch(trainer, batch, ub * RN, "s3dis_full_train_throughput",
                      "bf16 Full S3DIS train step")
 
@@ -2047,6 +2159,194 @@ def fused_step_vs_cpu(model_cfg, sub, seed):
             block_errs)
 
 
+# ---------------------------------------------------------------- phase 9
+
+def static_kernels():
+    """The kernels of the static-graph paths: the fused training and eval
+    kernels with B11, and B12/B13 of the f32 route."""
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn, scatter
+
+    return {**fused_train_kernels(),
+            "knn_edge_pre (B11)": edgeconv.knn_edge_pre,
+            "knn (B12)": knn.knn, "scatter_add (B13)": scatter.scatter_add}
+
+
+def check_launch_counts(launches, want, what) -> None:
+    """Each kernel of ``want`` launched exactly that many times."""
+    for name, n in want.items():
+        require(launches[name] == n, f"{what}: {name} launched "
+                f"{launches[name]} times, expected {n}")
+
+
+def phase_static_graph(report) -> None:
+    """Static-graph mode (--StaticGraph) end to end: the bf16 Full-style
+    training CLIs of ShapeNet and S3DIS, the ShapeNet test CLI, one f32
+    step, one bf16 step against the CPU; one graph per forward, B11 in
+    every other EdgeConv stage."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.cli import test_shapenet
+    from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
+    from weaksuppointcloudseg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    print(f"phase 9: static-graph mode end to end (--StaticGraph): bf16 Full "
+          f"training of ShapeNet ({PB} x 2 x {PN}) and S3DIS ({RB // 2} x 2 x "
+          f"{RN}), the ShapeNet test CLI, an f32 step, a step against the CPU")
+    kernels = static_kernels()
+    main_path = 0  # B11's launches on this phase's CLI runs
+    card = card_line()
+
+    # ShapeNet: the graph is the transform stage's (B1 once per forward),
+    # shared with the smoothness loss (B6 gather, no B9); B11 in the three
+    # EdgeConv stages; no B12
+    res, launches, wall, ds = shapenet_full_cli(kernels, "--StaticGraph")
+    print(f"  ShapeNet cli run (1 epoch: 3 steps + evaluate of 24 val clouds): "
+          f"{wall:.2f} s wall; launches {launches}")
+    check_full_epoch(res)
+    fwd = 3 + 1  # training forwards and evaluation batches
+    check_launch_counts(launches, {
+        "knn_edge (B1)": fwd, "knn_edge_pre (B11)": 3 * fwd,
+        "knn_wgather (B9)": 0, "knn (B12)": 0, "wgather_pre (B6)": 3,
+        "conv_minmax (B2)": 3 * 3, "conv_zmax (B7)": 3, "conv_znmax (B8)": 2},
+        "static bf16 Full ShapeNet")
+    main_path += launches["knn_edge_pre (B11)"]
+    trainer, batch = full_trainer(ds, "shapenet", static_graph=True)
+    time_fixed_batch(trainer, batch, PB * PN,
+                     "shapenet_full_train_throughput_static_graph",
+                     "static bf16 Full ShapeNet train step")
+
+    # one static bf16 step of two distinct clouds on the card against the
+    # plain versions on the CPU replaying the card's graph and moments,
+    # with phase 5's limits
+    small = dataclasses.replace(trainer.cfg.model,
+                                head_keep_prob=(None, None, None))
+    sub = {k: v[0:4:2] for k, v in batch.items()}
+    loss_err, lg_err, errs, null, block_errs = fused_step_vs_cpu(small, sub, 1)
+    leaf = max(e for n, e in errs.items()
+               if n not in null and n != "agg_conv.beta")
+    null_err = max(e for n, e in errs.items() if n in null)
+    block_worst = max((e, f"{name}.{k}") for name, be in block_errs
+                      for k, e in be.items())
+    print(f"  CUDA vs CPU replaying the card's graph and moments, one static "
+          f"bf16 step, 2 x {PN} points: blocks worst {block_worst[1]} "
+          f"{block_worst[0]:.2e}; loss rel err {loss_err:.2e}, logits rel RMS "
+          f"{lg_err:.2e}, worst leaf {leaf:.2e}, null-gradient biases "
+          f"{null_err:.2e}")
+    require(block_worst[0] <= 1e-2, f"CUDA static block disagrees: {block_errs}")
+    require(loss_err <= 2e-3 and lg_err <= 0.1 and leaf <= 0.4
+            and null_err <= 1.5e-2, "CUDA static step disagrees with the CPU")
+
+    # f32 static: one B12 kNN per forward (the step adds the smoothness
+    # loss's own kNN on xyz: the f32 route reuses no graph), the stages'
+    # gathers backward through B13; no fused kernel
+    base = configs.shapenet_config()
+    f32 = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, static_graph=True),
+        train=dataclasses.replace(base.train, batch_size=8, rampup=0))
+    trainer = ShapeNetTrainer(f32, ds, trainer.pts_idx, seed=0, device="cuda")
+    b = next(ds.batches("train", 8))
+    batch = trainer._to_device(trainer._assemble(
+        b, siamese=True, augment_pairs=True, full_mask=False))
+    out, launches = count_launches(
+        kernels, lambda: trainer.train_step(batch, 1.0, trainer.generator))
+    _, eval_launches = count_launches(
+        kernels, lambda: trainer.eval_step(batch))
+    torch.cuda.synchronize()
+    print(f"  f32 static step, 8 x 2 x {PN} points: launches {launches}; "
+          f"an eval forward: B12 {eval_launches['knn (B12)']}")
+    check_launch_counts(launches, {
+        "knn (B12)": 2, "scatter_add (B13)": 3, "knn_edge (B1)": 0,
+        "knn_edge_pre (B11)": 0}, "f32 static step")
+    check_launch_counts(eval_launches, {"knn (B12)": 1}, "f32 static eval")
+    require(all(bool(torch.isfinite(v)) for v in out.values()
+                if torch.is_tensor(v)), f"f32 static step: {out}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # the ShapeNet test CLI on phase 3's test set: per batch B1 once, B11
+    # three times, B7 and B8 as in the dynamic run
+    with tempfile.TemporaryDirectory() as tmp:
+        write_raw_testset(tmp)
+        ckpt = save_checkpoint(f"{tmp}/ckpt.npz", full_width_model()[1])
+        argv = ["--DataPath", tmp, "--Checkpoint", ckpt, "--Precision",
+                "bfloat16", "--FastKNN", "--StaticGraph", "--batchsize", str(B)]
+        t0 = time.perf_counter()
+        res, launches = count_launches(kernels, lambda: test_shapenet.main(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batches = launches["conv_znmax (B8)"] // 2
+    print(f"  test cli run --StaticGraph: {wall:.2f} s wall, {batches} "
+          f"batches; launches {launches}")
+    check_launch_counts(launches, {
+        "knn_edge (B1)": batches, "knn_edge_pre (B11)": 3 * batches,
+        "conv_zmax (B7)": 3 * batches, "knn (B12)": 0}, "static test CLI")
+    require(batches > 0, "the static test CLI ran no batch")
+    for key in ("perdata_miou", "pershape_miou", "accuracy"):
+        require(np.isfinite(res[key]) and 0.0 <= res[key] <= 1.0,
+                f"static test metric {key} = {res[key]}")
+    main_path += launches["knn_edge_pre (B11)"]
+
+    # S3DIS: stage 0 produces the graph (B1 once per forward), stages 1 and
+    # 2 reuse it (B11 twice); the smoothness loss selects on xyzrgb (B9)
+    res, launches, wall, ds = s3dis_full_cli(kernels, "--StaticGraph")
+    print(f"  S3DIS cli run (1 epoch: 3 steps + evaluate of {RB // 2} Area_5 "
+          f"blocks): {wall:.2f} s wall; launches {launches}")
+    check_full_epoch(res)
+    check_launch_counts(launches, {
+        "knn_edge (B1)": fwd, "knn_edge_pre (B11)": 2 * fwd,
+        "knn_wgather (B9)": 3, "wgather_pre (B6)": 0, "knn (B12)": 0,
+        "conv_zmax (B7)": 2, "conv_znmax (B8)": 1}, "static bf16 Full S3DIS")
+    main_path += launches["knn_edge_pre (B11)"]
+    trainer, batch = full_trainer(ds, "s3dis", static_graph=True)
+    time_fixed_batch(trainer, batch, RB // 2 * RN,
+                     "s3dis_full_train_throughput_static_graph",
+                     "static bf16 Full S3DIS train step")
+    for row in report:
+        if row["name"] == "knn_edge_pre (B11)":
+            row["launches"] = main_path
+    print(f"  B11 launches on this phase's CLI runs: {main_path} [{card}]")
+
+
+# --------------------------------------------------------------- phase 10
+
+def phase_convergence(report) -> None:
+    """The synthetic convergence recipes (utils/synth_convergence.py, 1024
+    points, batch 8, 24 epochs) on the card, held to the reference's
+    calibrated bars (tests/test_tpu_kernels.py:716-760, 918-931)."""
+    from weaksuppointcloudseg_tpu_torch.utils import synth_convergence as sc
+
+    print("phase 10: convergence on the learnable synthetic sets")
+    card = card_line()
+
+    def run(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"  {what}: {out} in {time.perf_counter() - t0:.1f} s [{card}]")
+        return out
+
+    f32 = run("ShapeNet f32 exact kNN (data_seed 0) mIoU", lambda:
+              sc.shapenet_train_and_eval_miou("float32", False, data_seed=0))
+    fast = run("ShapeNet bf16 knn_fast (data_seed 0) mIoU", lambda:
+               sc.shapenet_train_and_eval_miou("bfloat16", True, data_seed=0))
+    static = run("ShapeNet bf16 knn_fast static graph (data_seed 0) mIoU",
+                 lambda: sc.shapenet_train_and_eval_miou(
+                     "bfloat16", True, static_graph=True, data_seed=0))
+    miou, acc = run("S3DIS bf16 knn_fast (seed 0) (mIoU, accuracy)", lambda:
+                    sc.s3dis_train_and_eval_miou("bfloat16", True, seed=0))
+    bars = {"ShapeNet f32 mIoU > 0.5": f32 > 0.5,
+            "ShapeNet bf16 fast mIoU > 0.5": fast > 0.5,
+            "ShapeNet bf16 fast within 0.11 of f32": fast > f32 - 0.11,
+            "ShapeNet static graph mIoU > 0.5": static > 0.5,
+            "S3DIS mIoU > 0.35": miou > 0.35, "S3DIS accuracy > 0.5": acc > 0.5}
+    print("  bars: " + ", ".join(f"{k}: {'met' if ok else 'MISSED'}"
+                                 for k, ok in bars.items()))
+    require(all(bars.values()), "a convergence run is below its bar")
+
+
 def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
                      what: str = "e2e", ops: int = 0):
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler)
@@ -2094,7 +2394,7 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 
 # device kernels by the kind of work (first match wins)
 KERNEL_GROUPS = (
-    ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
+    ("knn_edge_pre_kernel", "B11"), ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
     ("KnnOut", "B12"), ("WGatherOut", "B9"), ("affinity_kernel", "B10"),
     ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
     ("scatter_add_weighted", "B6 scatter"),
@@ -2121,15 +2421,16 @@ def main() -> int:
         raise SystemExit("chip_smoke: CUDA is not available")
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} ({card})")
+    t_start = time.perf_counter()
     phase_build()
     report = []
-    phase_kernels(report)
-    phase_end_to_end(report)
-    phase_train(report)
-    phase_plain_train(report)
-    phase_full_train(report)
-    phase_s3dis_train(report)
-    phase_s3dis_test(report)
+    for phase in (phase_kernels, phase_end_to_end, phase_train,
+                  phase_plain_train, phase_full_train, phase_s3dis_train,
+                  phase_s3dis_test, phase_static_graph, phase_convergence):
+        t0 = time.perf_counter()
+        phase(report)
+        print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s wall)")
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,9 @@ k=10); room LP one room of bench.py's s3dis_room_lp_131072 (N=131072
 points of its 8 x 8 x 3 m room, Morton-sorted, 6 features, 13 classes),
 with every tile pair and with the pairs the skip mask keeps.
 
+B11 (static graph) reads idx, v and u once and writes y1 and the
+moments: an add, a sum and a square-and-sum in f32 per y1 element.
+
 A distance or affinity of a cloud with itself is symmetric, so it is
 counted once per pair, diagonal included (chip_smoke.py::gram_pairs,
 affinity_flops); the room-LP matvec's apply takes every ordered pair.
@@ -113,9 +116,11 @@ def rows():
          RB * RN * RC * F32 + RB * RN * 14 * BF16
          + RB * RN * RK * (I32 + F32) + RB * RN * 14 * F32),
         *room[:2],
-        ("B11", "edgeconv_pallas.py:862", "training C=64 (static graph)",
-         2.0 * tnk * C, "bf16",
-         tnk * I32 + 2 * TB * TN * C * BF16 + tnk * C * BF16),
+        *[("B11", "edgeconv_pallas.py:862", f"{what} C=64 (static graph)",
+           4.0 * b * n * K * C, "f32",
+           b * n * K * I32 + 2 * b * n * C * BF16 + b * n * K * C * BF16
+           + 2 * C * F32)
+          for what, b, n in (("training", TB, TN), ("S3DIS", RB, RN))],
         ("B14", "gather_pallas.py:64", "training C=64 bf16",
          0.0, "bf16", TB * TN * C * BF16 + tnk * (I32 + C * BF16)),
         ("B15", "edgeconv_pallas.py:286", "training Cg=C=64 bf16",

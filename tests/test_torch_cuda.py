@@ -797,3 +797,180 @@ def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
         assert (y.argmax(-1) != g.argmax(-1).cpu()).float().mean().item() >= 0.03
     assert (got.cpu() - want).abs().max().item() <= 1e-3
     assert (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item() >= 0.999
+
+
+# ------------------------------------------------------ B11 (static graph)
+
+def b11_check(got, want, nv):
+    """y1 and the extrema bitwise, the moments within 1e-5 of the sum of
+    magnitudes (f32 atomics in another order, ROADMAP C4)."""
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    y32 = want[0][:, :nv].float()
+    mags = torch.stack([y32.abs().sum((0, 1, 2)), (y32 * y32).sum((0, 1, 2))])
+    assert mag_sum_ok(got[1], want[1], mags)
+
+
+@pytest.mark.parametrize("c,minmax,n_valid", [
+    (64, True, None), (64, False, 650), (33, True, 500), (128, True, None)])
+def test_knn_edge_pre_kernel(gen, c, minmax, n_valid):
+    """B11 against its plain version on a random graph (odd C takes the
+    one-channel-per-lane instance); one launch per call."""
+    b, n, k = 3, 701, 20
+    v, u = randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    idx = torch.randint(0, n, (b, n, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    before = edgeconv.knn_edge_pre.launches
+    got = edgeconv.knn_edge_pre(idx, v, u, k, with_minmax=minmax,
+                                n_valid=n_valid)
+    assert edgeconv.knn_edge_pre.launches == before + 1
+    want = edgeconv.knn_edge_pre_ref(idx, v, u, k, with_minmax=minmax,
+                                     n_valid=n_valid)
+    assert len(got) == len(want) == (6 if minmax else 2)
+    b11_check(got, want, n if n_valid is None else n_valid)
+
+
+@pytest.mark.parametrize("fast,n_valid", [(True, None), (False, 600)])
+def test_knn_edge_pre_matches_b1(gen, fast, n_valid):
+    """Fed B1's own indices, B11 returns B1's y1 and extrema bit for bit
+    (the same add and one bf16 rounding), rows past n_valid zero."""
+    b, n, k, c = 2, 777, 20, 64
+    g, v, u = randn(gen, (b, n, 3)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    idx, *b1 = edgeconv.knn_edge(g, v, u, k, fast=fast, with_minmax=True,
+                                 n_valid=n_valid)
+    assert 0 <= int(idx.min()) and int(idx.max()) < (n_valid or n)
+    got = edgeconv.knn_edge_pre(idx, v, u, k, with_minmax=True,
+                                n_valid=n_valid)
+    b11_check(got, b1, n if n_valid is None else n_valid)
+
+
+def test_knn_edge_pre_refuses(gen):
+    v = randn(gen, (1, 64, 16))
+    idx = torch.zeros((1, 64, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        edgeconv.knn_edge_pre(idx.long(), v, v, 4)
+    with pytest.raises(ValueError, match="shape"):
+        edgeconv.knn_edge_pre(idx, v, v, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        edgeconv.knn_edge_pre(idx.transpose(1, 2).contiguous().transpose(1, 2),
+                              v, v, 4)
+
+
+def test_knn_edge_gather_pre_on_cuda_matches_cpu(gen):
+    """B11's VJP: y1 bitwise, du within one bf16 ulp (f32 sums of the same
+    bf16 dy_eff in another order), dv within 1e-5 of the scattered
+    magnitudes before its bf16 rounding plus one ulp (B13's atomics)."""
+    b, n, k, c = 2, 333, 20, 64
+    v, u = randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    idx = torch.randint(0, n, (b, n, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    dy = randn(gen, (b, n, k, c))
+    dmom = randn(gen, (2, c), torch.float32, 0.1)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        vv = v.to(dev, copy=True).requires_grad_()
+        uu = u.to(dev, copy=True).requires_grad_()
+        y, mom = edgeconv.knn_edge_gather_pre(idx.to(dev), vv, uu, k)
+        torch.autograd.backward((y, mom), (dy.to(dev), dmom.to(dev)))
+        outs.append((y.detach().cpu(), vv.grad.float().cpu(),
+                     uu.grad.float().cpu()))
+    (y_c, dv_c, du_c), (y_p, dv_p, du_p) = outs
+    assert torch.equal(y_c, y_p)
+    assert bool(((du_c - du_p).abs() <= 2.0 ** -7 * du_p.abs() + 1e-6).all())
+    assert bool(((dv_c - dv_p).abs() <= 2.0 ** -7 * dv_p.abs() + 1e-4).all())
+
+
+def static_cfg(preset, **kw):
+    """A narrow static-graph model of ``preset`` (ShapeNet: transform net
+    and category branch; S3DIS: 9 channels, kNN on 6:9)."""
+    base = getattr(configs, f"{preset}_config")().model
+    return dataclasses.replace(
+        base, num_classes=12, num_categories=4 if preset == "shapenet" else 0,
+        global_channels=128, category_embed_channels=8,
+        head_channels=(32, 32, 16)[:len(base.head_channels)],
+        head_keep_prob=(None,) * len(base.head_channels), static_graph=True,
+        **kw)
+
+
+@pytest.mark.parametrize("preset", ["shapenet", "s3dis"])
+def test_static_fused_step_on_cuda_matches_cpu(gen, preset):
+    """One static-graph bf16 step on the card: B1 once (the transform stage
+    or stage 0) and B11 in every other EdgeConv stage, B12 never; against
+    the same step over the plain versions on the CPU replaying the card's
+    indices and moments, with test_fused_train_step_on_cuda_matches_cpu's
+    limits (blocks 1e-2; the whole step loss 2e-3, logits 0.1, leaves
+    0.6, null biases 1e-2), at the training path's N=2048. The replay
+    leaves one difference: the card's rsqrt puts BN1's scale one f32 ulp
+    off the CPU's, which can flip a bf16 rounding of h1 and with it one
+    k-max slot of the next conv. At N=300 such a flip in the ShapeNet
+    model's second stage moved its BN2 beta gradient, a sum over 600
+    points, by 5% of its norm in 4 of 6 runs (the others: <= 2e-4); at
+    N=2048 a flip is diluted over 4096 points."""
+    from weaksuppointcloudseg_tpu_torch.losses.weaksup import masked_softmax_ce
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    cfg = static_cfg(preset, compute_dtype="bfloat16", knn_fast=True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 2048, cfg.in_channels), generator=g) * 0.5
+    onehot = torch.eye(12)[torch.randint(0, 12, (2, 2048), generator=g)]
+    mask = (torch.rand((2, 2048), generator=g) < 0.3).float()
+    cat = torch.eye(4)[[0, 2]] if cfg.num_categories else None
+    kernels = (edgeconv.knn_edge, edgeconv.knn_edge_pre, knn.knn,
+               conv_kmax.conv_minmax, conv_kmax.conv_nmax,
+               conv_kmax.conv_kmax_bwd, conv_kmax.conv_nmax_bwd,
+               scatter.scatter_bn_bwd)
+    want_counts = {"shapenet": [1, 3, 0, 3, 2, 3, 2, 4],
+                   "s3dis": [1, 2, 0, 2, 1, 2, 1, 3]}[preset]
+    outs, tape, blocks = [], None, None
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(cfg, seed=1).to(dev)
+        counts = [fn.launches for fn in kernels]
+        cuda = dev == "cuda"
+        c = None if cat is None else cat.to(dev)
+        with (replay.record() if cuda else replay.replay(tape)) as t, \
+                (replay.record_blocks() if cuda else contextlib.nullcontext()) as b:
+            logits = model(x.to(dev), c, training=True, bn_decay=0.5) \
+                if cuda else model.forward_fused(x, c, training=True,
+                                                 bn_decay=0.5)
+        tape, blocks = tape or t, blocks or b
+        loss = masked_softmax_ce(logits, onehot.to(dev), mask.to(dev))
+        loss.backward()
+        if cuda:
+            assert [fn.launches - c0 for fn, c0 in zip(kernels, counts)] == \
+                want_counts
+        outs.append((float(loss.detach()), logits.detach().float().cpu(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_l, got_lg, got_g), (want_l, want_lg, want_g) = outs
+    for entry in blocks:
+        errs = replay.block_errors(entry)
+        assert max(errs.values()) <= 1e-2, (entry["block"].__name__, errs)
+    errs, null = replay.grad_errors(model, got_g, want_g)
+    assert abs(got_l - want_l) <= 2e-3 * abs(want_l)
+    assert (got_lg - want_lg).norm() <= 0.1 * want_lg.norm()
+    for name, e in errs.items():
+        if name != "agg_conv.beta":
+            assert e <= (1e-2 if name in null else 0.6), (name, e)
+
+
+def test_static_f32_on_cuda(gen):
+    """f32 static graph on the card: one B12 kNN per forward (eval and
+    training), the stages' gathers backward through B13, and the eval
+    probabilities agree with the CPU's (test_model_gate_on_cuda's
+    limits)."""
+    cfg = static_cfg("shapenet")
+    model = DGCNNSeg(cfg, seed=2).cuda()
+    x = torch.randn((2, 500, 3), generator=gen, device="cuda") * 0.4
+    cat = torch.eye(4, device="cuda")[[1, 3]]
+    with torch.inference_mode():
+        want = torch.softmax(DGCNNSeg(cfg, seed=2)(x.cpu(), cat.cpu()), -1)
+        before = knn.knn.launches
+        got = torch.softmax(model(x, cat), -1)
+    assert knn.knn.launches - before == 1
+    agree = (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item()
+    assert agree >= 0.99 and (got.cpu() - want).abs().max().item() <= 1e-3
+    before = (knn.knn.launches, scatter.scatter_add.launches)
+    logits = model(x, cat, training=True, bn_decay=0.5)
+    logits.square().mean().backward()
+    assert (knn.knn.launches - before[0],
+            scatter.scatter_add.launches - before[1]) == (1, 3)

@@ -215,6 +215,22 @@ def test_test_s3dis_flags_match_reference():
     assert got.parse_args(["--batchsize", "3", "-sty", "Plain"]).Style == "Plain"
 
 
+def test_lp_solver_help_names_the_ported_solvers():
+    """--LPSolver's help on both test CLIs names the solvers the port runs
+    (cg, cg_matfree) and the ones propagate_batch still refuses."""
+    from weaksuppointcloudseg_tpu_torch.cli import test_shapenet
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
+
+    for p in (test_s3dis.parser(), test_shapenet.parser()):
+        (action,) = [a for a in p._actions if "--LPSolver" in a.option_strings]
+        ported = [c for c in action.choices if c not in label_prop._NOT_PORTED]
+        assert ported == ["cg", "cg_matfree"]
+        head, tail = action.help.split(";")
+        assert head.endswith("ported: " + ", ".join(ported))
+        assert all(c in tail for c in label_prop._NOT_PORTED)
+        assert "only cg" not in action.help
+
+
 @pytest.mark.parametrize("room_lp", [False, True])
 def test_cli_on_cpu(dataset, tmp_path, capsys, monkeypatch, room_lp):
     """cli.test_s3dis --device cpu end to end on a full-width S3DIS model

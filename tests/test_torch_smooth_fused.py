@@ -29,6 +29,7 @@ Tolerances, each with its reason:
 - The whole step: the tolerances of tests/test_torch_fused_step.py.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -249,11 +250,12 @@ def fused_full_jax(fused_jax, fused_loss_jax, monkeypatch):  # noqa: F811
     return fused_jax
 
 
-def run_full_step(cfg, batch, want_graph):
+def run_full_step(cfg, batch, want_graph, port_ctx=contextlib.nullcontext):
     """The JAX _loss_fn and its gradient, and the port's forward_fused +
     total_weaksup_loss(smooth_fused_bf16=True) and backward, on the same
-    weights and batch (gate on). Returns both sides' (components, logits,
-    gradients, new BN state) and the port model."""
+    weights and batch (gate on), the port's forward inside ``port_ctx()``.
+    Returns both sides' (components, logits, gradients, new BN state) and
+    the port model."""
     params, state = jax_weights(cfg)
     grad_fn = jax.jit(jax.value_and_grad(jsteps._loss_fn, has_aux=True),
                       static_argnames=("cfg", "style"))
@@ -270,8 +272,10 @@ def run_full_step(cfg, batch, want_graph):
     model = DGCNNSeg(pcfg.model)
     model.load_state_dict(params_from_jax(params, state), strict=True)
     tb = {k: t(v) for k, v in batch.items()}
-    out = model.forward_fused(tb["data"], tb.get("cat_onehot"), training=True,
-                              bn_decay=DECAY, want_smooth_graph=want_graph)
+    with port_ctx():
+        out = model.forward_fused(tb["data"], tb.get("cat_onehot"),
+                                  training=True, bn_decay=DECAY,
+                                  want_smooth_graph=want_graph)
     lg, graph = out if want_graph else (out, None)
     w = pcfg.weaksup
     total, comps = weaksup.total_weaksup_loss(

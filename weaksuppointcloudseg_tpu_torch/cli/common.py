@@ -46,7 +46,11 @@ def base_parser(dataset: str = "ShapeNet", *,
     p.add_argument("--FastKNN", action="store_true",
                    help="packed-min top-k selection")
     p.add_argument("--StaticGraph", action="store_true",
-                   help="static-graph EdgeConv (not ported yet)")
+                   help="opt-in static-graph EdgeConv: ONE input-coordinate "
+                        "kNN graph reused by every stage (not reference "
+                        "parity: a speed/accuracy trade; kernel B11 on the "
+                        "bf16 fused route). Test with the same flag the "
+                        "model trained with")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="not supported by the port")
     p.add_argument("--debug_nans", action="store_true",
@@ -77,7 +81,8 @@ def base_parser(dataset: str = "ShapeNet", *,
                        help="explicit checkpoint path (overrides --Datetime)")
         p.add_argument("--LPSolver", type=str, default=None,
                        choices=["solve", "cg", "cg_matfree", "sharded"],
-                       help="label-propagation solver (only cg is ported)")
+                       help="label-propagation solver (ported: cg, "
+                            "cg_matfree; solve and sharded are not yet)")
     return p
 
 

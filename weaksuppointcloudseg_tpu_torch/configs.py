@@ -58,7 +58,9 @@ class ModelConfig:
     use_fused_knn: bool = True
     # packed-min top-k selection: near-tie neighbors may reorder
     knn_fast: bool = False
-    static_graph: bool = False  # not ported yet: the model raises
+    # opt-in (not reference parity): one kNN graph on the input
+    # coordinates, reused by every EdgeConv stage (models/dgcnn.py)
+    static_graph: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +89,7 @@ class LabelPropConfig:
     xyz_bandwidth: float = 1e3
     rgb_bandwidth: float = 1e1
     ridge: float = 1e-5
-    solver: str = "cg"  # the only solver ported so far
+    solver: str = "cg"  # ported: "cg", "cg_matfree" (solve, sharded: not yet)
     cg_iters: int = 50
     cg_tol: float = 1e-5
 

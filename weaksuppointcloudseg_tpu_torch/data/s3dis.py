@@ -68,6 +68,18 @@ class S3DISDataset:
         self._data = None
         self._label = None
 
+    @classmethod
+    def from_arrays(cls, data: np.ndarray, label: np.ndarray, room_filelist,
+                    num_classes: int = NUM_CLASSES) -> "S3DISDataset":
+        """A dataset of blocks held in memory: data [S, N, 9], label [S, N]
+        and one room name per block (no shards to read)."""
+        ds = cls.__new__(cls)
+        ds.base, ds.num_classes, ds.all_files = None, num_classes, []
+        ds.room_filelist = list(room_filelist)
+        ds._data = np.asarray(data, np.float32)
+        ds._label = np.asarray(label, np.int32)
+        return ds
+
     def load_all(self) -> None:
         if self._data is not None:
             return
@@ -135,6 +147,7 @@ MIN_POINTS = 100  # blocks with fewer points are dropped
 
 
 def room_to_blocks(data_label: np.ndarray, num_point: int, *,
+                   min_points: int = MIN_POINTS,
                    rng: Optional[np.random.Generator] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Room -> fixed-size 9-channel blocks (DataIO_S3DIS.py:301-414).
@@ -142,6 +155,7 @@ def room_to_blocks(data_label: np.ndarray, num_point: int, *,
     Args:
       data_label: [N, 7] (xyz in metres from the room's min corner, rgb
         0-255, class label).
+      min_points: blocks with fewer points are dropped.
       rng: the resampling draws, in block order (default: seed 0).
 
     Returns:
@@ -164,7 +178,7 @@ def room_to_blocks(data_label: np.ndarray, num_point: int, *,
             cond = ((data[:, 0] >= xbeg) & (data[:, 0] <= xbeg + BLOCK_SIZE)
                     & (data[:, 1] >= ybeg) & (data[:, 1] <= ybeg + BLOCK_SIZE))
             n_in = int(cond.sum())
-            if n_in < MIN_POINTS:
+            if n_in < min_points:
                 continue
             sel = sample_to_num_points(n_in, num_point, rng)
             block, blab = data[cond][sel], label[cond][sel]
@@ -179,6 +193,35 @@ def room_to_blocks(data_label: np.ndarray, num_point: int, *,
         return (np.zeros((0, num_point, 9), np.float32),
                 np.zeros((0, num_point), np.int32))
     return np.stack(blocks), np.stack(labels)
+
+
+def synthetic_blocks(*, num_rooms_per_area: int = 2,
+                     areas: Tuple[int, ...] = (1, 5), blocks_per_room: int = 4,
+                     num_points: int = 128, num_classes: int = NUM_CLASSES,
+                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray, list]:
+    """The training blocks of the JAX package's ``data/s3dis.py::
+    write_synthetic`` (same arguments, same draws), in memory: rooms of
+    uniform points in a 2 x 2 x 3 m box whose labels follow the height,
+    cut into blocks. Returns (data [S, num_points, 9] f32, label [S,
+    num_points] i32, one room name per block), what that writer puts in
+    its h5 shard and room_filelist.txt; numpy only."""
+    rng = np.random.default_rng(seed)
+    all_data, all_labels, room_rows = [], [], []
+    for a in areas:
+        for r in range(num_rooms_per_area):
+            n_raw = blocks_per_room * num_points * 2
+            xyz = rng.uniform([0, 0, 0], [2.0, 2.0, 3.0], (n_raw, 3))
+            rgb = rng.uniform(0, 255, (n_raw, 3))
+            lab = np.minimum((xyz[:, 2] / 3.0 * num_classes).astype(np.int64),
+                             num_classes - 1)
+            room = np.concatenate([xyz, rgb, lab[:, None]], axis=1)
+            blocks, blabels = room_to_blocks(room, num_points, min_points=10,
+                                             rng=rng)
+            all_data.append(blocks[:blocks_per_room])
+            all_labels.append(blabels[:blocks_per_room])
+            room_rows += [f"Area_{a}_room_{r}"] * len(all_data[-1])
+    return (np.concatenate(all_data).astype(np.float32),
+            np.concatenate(all_labels).astype(np.int32), room_rows)
 
 
 class S3DISTestRooms:

@@ -28,10 +28,21 @@ On the fused training route ``want_smooth_graph`` also returns the
 transform stage's kNN graph, which the Full-style smoothness loss reuses
 with kernels B6 (train/steps.py).
 
-Not ported here: static-graph mode and EdgeConv stages of three or more
-convs on the fused path (no preset has one). The reference's
-``allow_known_bad_bf16`` guard is absent on purpose: the bf16 miscompile it
-guards against is a TPU backend fault.
+Static-graph mode (``ModelConfig.static_graph``, opt-in, not reference
+parity: dgcnn.py:186-309) builds one kNN graph on the input coordinates
+and every EdgeConv stage reuses it. The graph comes from the transform
+stage (fused route: B1 on the raw kNN-input coordinates in the compute
+dtype, the graph the smoothness loss reuses too; plain route: one
+``knn_graph_fused``, B12 on the card, on the same coordinates), else from
+a fused two-conv stage 0 (B1 on the kNN channels), else from one
+standalone ``knn_graph_fused`` on the kNN channels. The fused stages then
+gather along it with kernel B11 (training and eval), the plain stages
+with ``neighbors.gather_neighbors`` (backward B13).
+
+Not ported here: EdgeConv stages of three or more convs on the fused path
+(no preset has one). The reference's ``allow_known_bad_bf16`` guard is
+absent on purpose: the bf16 miscompile it guards against is a TPU backend
+fault.
 """
 
 from __future__ import annotations
@@ -54,9 +65,6 @@ class DGCNNSeg(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0):
         super().__init__()
-        if cfg.static_graph:
-            raise NotImplementedError(
-                "static-graph mode is not ported yet (ROADMAP A.10, B11)")
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.cfg = cfg
@@ -92,6 +100,15 @@ class DGCNNSeg(nn.Module):
             lo, hi = self.cfg.knn_channels
             return x[..., lo:hi]
         return x
+
+    def _static_graph(self, g: torch.Tensor) -> torch.Tensor:
+        """The static-graph mode's one kNN graph on ``g`` outside a fused
+        stage: B12 with ``use_fused_knn`` (f32 on the card), else the
+        plain distance + sort."""
+        cfg = self.cfg
+        if cfg.use_fused_knn:
+            return neighbors.knn_graph_fused(g.float(), cfg.k, fast=cfg.knn_fast)
+        return neighbors.knn_graph(g, cfg.k)
 
     def _convs(self, widths, conv_i):
         return [getattr(self, f"adj_conv{conv_i + j}") for j in range(len(widths))]
@@ -152,24 +169,34 @@ class DGCNNSeg(nn.Module):
         """Plain composition (reference dgcnn.py:216-232, 300-317,
         327-365): kNN graphs by B12 with ``use_fused_knn`` (its plain
         version on CPU tensors), else the plain distance + sort; neighbor
-        gathers whose backward is B13."""
+        gathers whose backward is B13. Static-graph mode: one graph on the
+        raw kNN-input coordinates in the compute dtype, which the transform
+        net and every stage gather along."""
         cfg, dt = self.cfg, self.compute_dtype
         kw = dict(eps=cfg.bn_eps, training=training, decay=bn_decay)
         nkw = dict(use_fused=cfg.use_fused_knn, fast=cfg.knn_fast)
+        static_idx = None
         if cfg.use_transform_net:
             g = self._knn_input(x)
+            gc = g.to(dt)
+            if cfg.static_graph:
+                static_idx = self._static_graph(gc)
             # graph on the raw coordinates, features in the compute dtype
-            transform = self.transform_net.forward_plain(g, g.to(dt), cfg.k,
-                                                         **nkw, **kw)
+            transform = self.transform_net.forward_plain(
+                g, gc, cfg.k, idx=static_idx, **nkw, **kw)
             x = self._apply_transform(x, transform)
         feat = x.to(dt)
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
+        if cfg.static_graph and static_idx is None:
+            static_idx = self._static_graph(graph_feat)
         conv_i, outs = 1, []
         for s_i, widths in enumerate(cfg.edge_channels):
             src = graph_feat if s_i == 0 else outs[-1]
             f_in = feat if s_i == 0 else outs[-1]
             convs = self._convs(widths, conv_i)
-            nbr = neighbors.neighbor_features_auto(src, f_in, cfg.k, **nkw)
+            nbr = (neighbors.gather_neighbors(f_in, static_idx)
+                   if static_idx is not None else
+                   neighbors.neighbor_features_auto(src, f_in, cfg.k, **nkw))
             h = layers.apply_edge_conv(convs[0], f_in, nbr, **kw)
             for p in convs[1:]:
                 h = layers.apply_conv(p, h, **kw)
@@ -194,7 +221,9 @@ class DGCNNSeg(nn.Module):
         ``generator``. ``want_smooth_graph`` (training with a transform
         net): return ``(logits, (idx, sqd))``, the transform stage's
         gradient-free kNN graph on the raw kNN-input coordinates (cast to
-        the compute dtype), for the smoothness loss to reuse."""
+        the compute dtype), for the smoothness loss to reuse. Static-graph
+        mode reuses the same graph in every stage (B11); without a
+        transform net a two-conv stage 0 produces it."""
         cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
         if training and n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
@@ -202,26 +231,42 @@ class DGCNNSeg(nn.Module):
             raise ValueError("want_smooth_graph reuses the transform stage's "
                              "graph: training with a transform net only")
         kw = dict(eps=eps, training=training, decay=bn_decay)
-        graph = None
+        graph = static_idx = None
         if cfg.use_transform_net:
             g = self._knn_input(x).to(dt).contiguous()
+            # the smoothness loss and the static stages share this graph
+            want_tgraph = want_smooth_graph or cfg.static_graph
             transform = self.transform_net.forward_fused(
                 g, cfg.k, fast=cfg.knn_fast, n_valid=n_valid,
-                want_graph=want_smooth_graph, **kw)
-            if want_smooth_graph:
-                transform, graph = transform
+                want_graph=want_tgraph, **kw)
+            if want_tgraph:
+                transform, tgraph = transform
+                graph = tgraph if want_smooth_graph else None
+                static_idx = tgraph[0] if cfg.static_graph else None
             x = self._apply_transform(x, transform)
         feat = x.to(dt).contiguous()
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
+        if (cfg.static_graph and static_idx is None
+                and len(cfg.edge_channels[0]) != 2):
+            # no fused stage-0 producer either: one standalone kNN
+            if n_valid is not None:
+                raise ValueError("n_valid does not thread through the "
+                                 "standalone static-graph kNN producer")
+            static_idx = self._static_graph(graph_feat)
         conv_i, outs = 1, []
         for s_i, widths in enumerate(cfg.edge_channels):
             src = graph_feat if s_i == 0 else outs[-1]
             f_in = feat if s_i == 0 else outs[-1]
             convs = self._convs(widths, conv_i)
-            skw = dict(fast=cfg.knn_fast, n_valid=n_valid, **kw)
+            skw = dict(fast=cfg.knn_fast, n_valid=n_valid,
+                       reuse_idx=static_idx, **kw)
             if len(widths) == 2:
+                produce = cfg.static_graph and static_idx is None
                 out = layers.apply_edge_conv_stage_fused(
-                    convs[0], convs[1], f_in, src, cfg.k, **skw)
+                    convs[0], convs[1], f_in, src, cfg.k, want_graph=produce,
+                    **skw)
+                if produce:
+                    out, (static_idx, _) = out
             elif len(widths) == 1:
                 out = layers.apply_edge_conv_stage1_fused(
                     convs[0], f_in, src, cfg.k, **skw)

@@ -17,10 +17,15 @@ EdgeConv conv as an ``autograd.Function`` with the reference's factored
 backward, and dropout. The fused blocks (bf16) evaluate over kernels B1,
 B7, B8 and train as ``autograd.Function``s over B1-B5 (the reference's
 ``custom_vjp``s ``_edge_conv_stage_train``, ``_edge_conv_stage1_train`` and
-``_conv_bn_nmax_train``). BN state lives in each conv's ``mean``/``var``
-buffers; a training forward updates them in place. The reference's
-``axis_name`` (BN moments summed across data-parallel replicas) is absent:
-data parallelism is not ported yet (ROADMAP A.7).
+``_conv_bn_nmax_train``). With ``reuse_idx`` (static-graph mode) an
+EdgeConv stage takes its neighbours from a given graph through kernel B11
+instead of selecting them with B1; everything downstream, the backward
+included, is the selecting stage's (the reference's
+``_edge_conv_stage_pre_train`` / ``_edge_conv_stage1_pre_train``). BN
+state lives in each conv's ``mean``/``var`` buffers; a training forward
+updates them in place. The reference's ``axis_name`` (BN moments summed
+across data-parallel replicas) is absent: data parallelism is not ported
+yet (ROADMAP queue A, "Data parallelism").
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from weaksuppointcloudseg_tpu_torch.ops.conv_kmax import (
     conv_zmax,
     conv_znmax,
 )
-from weaksuppointcloudseg_tpu_torch.ops.edgeconv import knn_edge
+from weaksuppointcloudseg_tpu_torch.ops.edgeconv import knn_edge, knn_edge_pre
 from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_bn_bwd
 
 BN_EPS = 1e-3
@@ -269,14 +274,21 @@ class _EdgeConvStageTrain(torch.autograd.Function):
     Outputs (out [B,N,C2], mean1, var1, mean2, var2); the moments feed the
     BN buffer updates only. With ``want_graph`` B1 also emits the selected
     squared distances, and the stage's kNN graph (idx int32 [B,N,k], sqd
-    f32 [B,N,k], nearest first, gradient-free) follows the moments."""
+    f32 [B,N,k], nearest first, gradient-free) follows the moments. With
+    ``reuse_idx`` (static-graph mode, the reference's
+    ``_edge_conv_stage_pre_train``) B11 gathers along that graph in place
+    of B1 and ``g_src`` is unused; the backward is the same."""
 
     @staticmethod
     def forward(ctx, f, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, g_src,
-                k, eps, fast, want_graph=False):
+                k, eps, fast, want_graph=False, reuse_idx=None):
         u, v = uv_factor(w1, b1, f)
-        idx, y1, mom1, *sqd = knn_edge(g_src.detach().contiguous(), v, u, k,
-                                       fast=fast, with_values=want_graph)
+        if reuse_idx is None:
+            idx, y1, mom1, *sqd = knn_edge(g_src.detach().contiguous(), v, u,
+                                           k, fast=fast, with_values=want_graph)
+        else:
+            idx = reuse_idx
+            y1, mom1 = knn_edge_pre(idx, v, u, k)
         r = y1.shape[0] * y1.shape[1] * y1.shape[2]
         mean1, var1, s1, t1, inv1 = _stage_consts(mom1, r, gamma1, beta1, eps)
         ymax, amax, ymin, amin, mom2 = conv_minmax(
@@ -315,7 +327,7 @@ class _EdgeConvStageTrain(torch.autograd.Function):
         dv, du = scatter_bn_bwd(idx, y1, dz1, s1, alpha1, beta1v, n_)
         df, dw1, db1 = _uv_grads(w1, f, du, dv)
         return (df if ctx.needs_input_grad[0] else None, dw1, db1, a2p, a1p,
-                dw2, db2, a2, a1, None, None, None, None, None)
+                dw2, db2, a2, a1, None, None, None, None, None, None)
 
 
 class _EdgeConvStage1Train(torch.autograd.Function):
@@ -324,13 +336,22 @@ class _EdgeConvStage1Train(torch.autograd.Function):
     BN + relu + k-max act on the selected extrema. Backward: BN's backward
     from the extrema, then B4 in its sparse mode (the routed gradient at
     the selected slot plus BN's dense correction) scatters the factored
-    cotangents. Outputs (out, mean, var)."""
+    cotangents. Outputs (out, mean, var). With ``reuse_idx`` B11 (with its
+    extrema) gathers along that graph in place of B1 (the reference's
+    ``_edge_conv_stage1_pre_train``); the backward is the same."""
 
     @staticmethod
-    def forward(ctx, f, w1, b1, gamma1, beta1, g_src, k, eps, fast):
+    def forward(ctx, f, w1, b1, gamma1, beta1, g_src, k, eps, fast,
+                reuse_idx=None):
         u, v = uv_factor(w1, b1, f)
-        idx, y1, mom, ymax, amax, ymin, amin = knn_edge(
-            g_src.detach().contiguous(), v, u, k, fast=fast, with_minmax=True)
+        if reuse_idx is None:
+            idx, y1, mom, ymax, amax, ymin, amin = knn_edge(
+                g_src.detach().contiguous(), v, u, k, fast=fast,
+                with_minmax=True)
+        else:
+            idx = reuse_idx
+            y1, mom, ymax, amax, ymin, amin = knn_edge_pre(
+                idx, v, u, k, with_minmax=True)
         r = y1.shape[0] * y1.shape[1] * y1.shape[2]
         mean, var, s, t, inv = _stage_consts(mom, r, gamma1, beta1, eps)
         ysel, asel = minmax_select(ymax, amax, ymin, amin, s)
@@ -351,7 +372,7 @@ class _EdgeConvStage1Train(torch.autograd.Function):
                                 None, alpha, beta_v, n_)
         df, dw1, db1 = _uv_grads(w1, f, du, dv)
         return (df if ctx.needs_input_grad[0] else None, dw1, db1, a2, a1,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class _ConvBnNmaxTrain(torch.autograd.Function):
@@ -384,59 +405,76 @@ class _ConvBnNmaxTrain(torch.autograd.Function):
 
 
 def apply_edge_conv_stage_fused(p1: Conv, p2: Conv, f: torch.Tensor,
-                                g_src: torch.Tensor, k: int, *,
+                                g_src: Optional[torch.Tensor], k: int, *,
                                 eps: float = BN_EPS, fast: bool = False,
                                 n_valid: Optional[int] = None,
                                 training: bool = False, decay=None,
-                                want_graph: bool = False):
+                                want_graph: bool = False,
+                                reuse_idx: Optional[torch.Tensor] = None):
     """Whole two-conv EdgeConv stage (layers.py:817-907). Eval: kNN +
     conv1 (B1) and BN1 + relu + conv2 + BN2 + relu + k-max (B7). Training:
     :class:`_EdgeConvStageTrain` (B1, B2; backward B3, B4), with both BN
     layers' population stats updated in place. f, g_src: bf16.
 
-    ``want_graph`` (training only): return ``(out, (idx, sqd))``, the
-    stage's gradient-free kNN graph on ``g_src`` beside its output, for
-    the smoothness loss to reuse (losses/weaksup.py)."""
+    ``want_graph``: return ``(out, (idx, sqd))``, the stage's
+    gradient-free kNN graph on ``g_src`` beside its output, for the
+    smoothness loss or later static-graph stages to reuse (at eval with
+    ``n_valid``: only rows < n_valid are candidates). ``reuse_idx``
+    (static-graph mode): take the neighbours from this int32 [B, N, k]
+    graph through B11 instead of selecting them (``g_src`` unused; at
+    eval rows >= n_valid are zeroed as B1 zeroes them)."""
+    if want_graph and reuse_idx is not None:
+        raise ValueError("a reusing stage has no graph to emit")
     if training:
         if n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
         out, mean1, var1, mean2, var2, *graph = _EdgeConvStageTrain.apply(
             f, p1.w, p1.b, p1.gamma, p1.beta, p2.w, p2.b, p2.gamma, p2.beta,
-            g_src, k, eps, fast, want_graph)
+            g_src, k, eps, fast, want_graph, reuse_idx)
         _update_bn(p1, mean1, var1, decay)
         _update_bn(p2, mean2, var2, decay)
         return (out, tuple(graph)) if want_graph else out
-    if want_graph:
-        raise ValueError("want_graph is a training option (the graph feeds "
-                         "the smoothness loss)")
     u, v = uv_factor(p1.w, p1.b, f)
-    _, y1, _ = knn_edge(g_src.contiguous(), v, u, k, fast=fast,
-                        n_valid=n_valid)
+    graph = None
+    if reuse_idx is not None:
+        y1, _ = knn_edge_pre(reuse_idx, v, u, k, n_valid=n_valid)
+    else:
+        idx, y1, _, *sqd = knn_edge(g_src.contiguous(), v, u, k, fast=fast,
+                                    with_values=want_graph, n_valid=n_valid)
+        graph = (idx, sqd[0]) if want_graph else None
     s1, t1 = bn_affine(p1, eps)
     s2, t2 = bn_affine(p2, eps)
-    return conv_zmax(y1, p2.w.to(f.dtype), p2.b, s2, t2, s1, t1)
+    out = conv_zmax(y1, p2.w.to(f.dtype), p2.b, s2, t2, s1, t1)
+    return (out, graph) if want_graph else out
 
 
 def apply_edge_conv_stage1_fused(p: Conv, f: torch.Tensor,
-                                 g_src: torch.Tensor, k: int, *,
+                                 g_src: Optional[torch.Tensor], k: int, *,
                                  eps: float = BN_EPS, fast: bool = False,
                                  n_valid: Optional[int] = None,
-                                 training: bool = False,
-                                 decay=None) -> torch.Tensor:
+                                 training: bool = False, decay=None,
+                                 reuse_idx: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Single-conv EdgeConv stage (layers.py:1069-1123): B1 emits the
     per-channel k-extrema of the conv output; BN's sign picks max or min.
-    Training: :class:`_EdgeConvStage1Train` (backward B4, sparse mode)."""
+    Training: :class:`_EdgeConvStage1Train` (backward B4, sparse mode).
+    ``reuse_idx`` (static-graph mode): B11 emits the extrema along that
+    graph instead (``g_src`` unused)."""
     if training:
         if n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
         out, mean, var = _EdgeConvStage1Train.apply(
-            f, p.w, p.b, p.gamma, p.beta, g_src, k, eps, fast)
+            f, p.w, p.b, p.gamma, p.beta, g_src, k, eps, fast, reuse_idx)
         _update_bn(p, mean, var, decay)
         return out
     u, v = uv_factor(p.w, p.b, f)
-    _, _, _, ymax, amax, ymin, amin = knn_edge(
-        g_src.contiguous(), v, u, k, fast=fast, with_minmax=True,
-        n_valid=n_valid)
+    if reuse_idx is not None:
+        _, _, ymax, amax, ymin, amin = knn_edge_pre(
+            reuse_idx, v, u, k, with_minmax=True, n_valid=n_valid)
+    else:
+        _, _, _, ymax, amax, ymin, amin = knn_edge(
+            g_src.contiguous(), v, u, k, fast=fast, with_minmax=True,
+            n_valid=n_valid)
     s, t = bn_affine(p, eps)
     z = minmax_select(ymax, amax, ymin, amin, s)[0].float() * s + t
     return torch.relu(z).to(f.dtype)

@@ -43,13 +43,17 @@ class TransformNet(nn.Module):
 
     def forward_plain(self, g: torch.Tensor, f: torch.Tensor, k: int, *,
                       eps: float, use_fused: bool = True, fast: bool = False,
-                      training: bool = False, decay=None) -> torch.Tensor:
+                      training: bool = False, decay=None,
+                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Plain path (transform_net.py:80-106): kNN graph on ``g`` (kernel
-        B12 with ``use_fused``), edge features of ``f``, convs with batch
-        moments when ``training``. Returns the [B, K, K] transform. ``f``
-        is data, so no gradient reaches the neighbor gather."""
+        B12 with ``use_fused``), or the given graph ``idx`` (static-graph
+        mode), edge features of ``f``, convs with batch moments when
+        ``training``. Returns the [B, K, K] transform. ``f`` is data, so no
+        gradient reaches the neighbor gather."""
         kw = dict(eps=eps, training=training, decay=decay)
-        ef = neighbors.edge_feature_auto(g, f, k, use_fused=use_fused, fast=fast)
+        ef = (neighbors.edge_feature(f, idx) if idx is not None else
+              neighbors.edge_feature_auto(g, f, k, use_fused=use_fused,
+                                          fast=fast))
         net = layers.apply_conv(self.tconv1, ef, **kw)
         net = layers.apply_conv(self.tconv2, net, **kw)
         net = torch.amax(net, dim=2)
@@ -64,8 +68,9 @@ class TransformNet(nn.Module):
         EdgeConv stage on the bf16 coordinates ``g`` (B1 + B7 at eval; B1 +
         B2, backward B3 + B4, in training), then tconv3 + max over N (B8;
         B5 in training) (transform_net.py:55-108). ``g`` is data: no
-        gradient reaches it. ``want_graph`` (training): return
-        ``(transform, (idx, sqd))`` with the stage's kNN graph on ``g``."""
+        gradient reaches it. ``want_graph`` (training and eval): return
+        ``(transform, (idx, sqd))`` with the stage's kNN graph on ``g``, for
+        the smoothness loss and the static-graph stages."""
         kw = dict(eps=eps, training=training, decay=decay)
         net = layers.apply_edge_conv_stage_fused(
             self.tconv1, self.tconv2, g, g, k, fast=fast, n_valid=n_valid,

@@ -34,6 +34,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "knn_edge_launch": [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P,
                         P, P, P],
+    "knn_edge_pre_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P],
     "conv_zmax_launch": [P, P, P, P, P, P, P, I, I, I, I, P, P],
     "conv_znmax_launch": [P, P, P, P, P, I, I, I, I, I, I, P, P, P],
     "knn_launch": [P, I, I, I, I, I, I, P, P, P, P],

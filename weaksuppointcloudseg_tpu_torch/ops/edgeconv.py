@@ -1,14 +1,24 @@
-"""Kernel B1: fused kNN + first EdgeConv conv (``ops/csrc/knn_edge.cu``).
+"""Kernel B1: fused kNN + first EdgeConv conv (``ops/csrc/knn_edge.cu``),
+and kernel B11: the same first conv on a given graph
+(``ops/csrc/knn_edge_pre.cu``).
 
-Counterpart of weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py::
+B1 is the counterpart of weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py::
 _knn_edge_impl. The first conv of an EdgeConv stage factors as
 ``conv(concat([f_i, f_j - f_i])) = u_i + v_j`` with per-point
 ``u = f (W_top - W_bot) + b`` and ``v = f W_bot`` (models/layers.py::
 _uv_factor), so the kernel only adds ``u`` to each selected neighbor's
 ``v``: the edge tensor and the distance matrix never reach memory.
 
-``knn_edge`` launches the CUDA kernel on CUDA tensors and takes the plain
-version ``knn_edge_ref`` on CPU tensors; any other device raises.
+B11 (``knn_edge_pre``, counterpart of ``_knn_edge_pre_impl``) is B1's
+epilogue with the neighbours read from a given ``idx`` instead of
+selected: the static-graph mode's reusing stages. Given B1's own indices
+it returns B1's y1 and extrema bit for bit. ``KnnEdgeGatherPre`` is its
+VJP (``knn_edge_gather_pre``, edgeconv_pallas.py:892-943), whose scatter
+is kernel B13.
+
+``knn_edge`` and ``knn_edge_pre`` launch their CUDA kernels on CUDA
+tensors and take their plain versions (``knn_edge_ref``,
+``knn_edge_pre_ref``) on CPU tensors; any other device raises.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import _build
 from weaksuppointcloudseg_tpu_torch.ops.knn import distances, idx_bits, select_ref
+from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 
 def knn_edge_ref(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
@@ -130,3 +141,99 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
 
 
 knn_edge.launches = 0  # kernel launches since the last reset
+
+
+def knn_edge_pre_ref(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+                     k: int, *, with_minmax: bool = False,
+                     n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`knn_edge_pre` (same contract):
+    :func:`edge_outputs_ref` without the indices."""
+    if idx.shape[-1] != k:
+        raise ValueError(f"knn_edge_pre: idx holds {idx.shape[-1]} neighbours, "
+                         f"expected k={k}")
+    return edge_outputs_ref(idx, v, u, with_minmax=with_minmax,
+                            n_valid=n_valid)[1:]
+
+
+def knn_edge_pre(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int,
+                 *, with_minmax: bool = False,
+                 n_valid: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """``y1 = bf16(v[idx] + u)`` + moments on a given kNN graph (kernel B11).
+
+    Args:
+      idx: int32 [B, N, k] neighbour rows, each in [0, N). The kernel does
+        not clamp: an index outside the range stops it with a device trap.
+      v, u: [B, N, C] bf16 factored first-conv terms.
+      k: neighbours per point (idx's last dimension).
+      with_minmax: also return the per-channel max/min of y1 over the k
+        slots with the first winning slot.
+      n_valid: only rows < n_valid enter the moments; rows past it hold
+        zeros (and zero extrema at slot 0), as B1 writes them.
+
+    Returns:
+      (y1 bf16 [B,N,k,C], mom f32 [2,C]
+       [, ymax bf16 [B,N,C], amax int32, ymin bf16, amin int32]).
+    """
+    if idx.device.type == "cpu":
+        return knn_edge_pre_ref(idx, v, u, k, with_minmax=with_minmax,
+                                n_valid=n_valid)
+    if idx.device.type != "cuda":
+        raise ValueError(f"knn_edge_pre: unsupported device {idx.device}")
+    b, n, c = v.shape
+    dev = idx.device
+    _build.check_operand(idx, "idx", torch.int32, dev, (b, n, k))
+    _build.check_operand(v, "v", torch.bfloat16, dev, (b, n, c))
+    _build.check_operand(u, "u", torch.bfloat16, dev, (b, n, c))
+    if k < 1 or b > 65535:
+        raise ValueError(f"knn_edge_pre: k={k}, batch {b} out of range")
+    nv = n if n_valid is None else max(0, min(n_valid, n))
+    y = torch.empty((b, n, k, c), dtype=torch.bfloat16, device=dev)
+    mom = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    mm = (torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
+          torch.empty((b, n, c), dtype=torch.int32, device=dev),
+          torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
+          torch.empty((b, n, c), dtype=torch.int32, device=dev)
+          ) if with_minmax else (None,) * 4
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.knn_edge_pre_launch(
+            idx.data_ptr(), v.data_ptr(), u.data_ptr(), b, n, c, k, nv,
+            y.data_ptr(), mom.data_ptr(), *[_build.ptr(t) for t in mm],
+            _build.stream_ptr(dev))
+    _build.check(code, "knn_edge_pre")
+    knn_edge_pre.launches += 1
+    return (y, mom) + mm if with_minmax else (y, mom)
+
+
+knn_edge_pre.launches = 0  # kernel launches since the last reset
+
+
+class KnnEdgeGatherPre(torch.autograd.Function):
+    """``(y1, mom) = knn_edge_pre(idx, v, u, k)`` with its VJP
+    (edgeconv_pallas.py:892-943): the moments' cotangent folds into
+    ``dy_eff = bf16(dy + dmom[0] + 2 y dmom[1])``; ``du`` sums dy_eff over
+    the k slots in f32, ``dv`` scatters it along idx (kernel B13), and idx
+    gets no gradient. Only tests reach it: the fused stages fold this
+    backward into their own (models/layers.py)."""
+
+    @staticmethod
+    def forward(ctx, idx, v, u, k):
+        y, mom = knn_edge_pre(idx, v.detach(), u.detach(), k)
+        ctx.save_for_backward(idx, y)
+        ctx.dtypes = (v.dtype, u.dtype)
+        ctx.mark_non_differentiable(idx)
+        return y, mom
+
+    @staticmethod
+    def backward(ctx, dy, dmom):
+        idx, y = ctx.saved_tensors
+        dy_eff = (dy.float() + dmom[0] + 2.0 * y.float() * dmom[1]).to(y.dtype)
+        du = dy_eff.float().sum(dim=2).to(ctx.dtypes[1])
+        dv = scatter_add(idx, dy_eff.float().contiguous(), y.shape[1])
+        return None, dv.to(ctx.dtypes[0]), du, None
+
+
+def knn_edge_gather_pre(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+                        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable (y1, mom) of :func:`knn_edge_pre` in v and u."""
+    return KnnEdgeGatherPre.apply(idx, v, u, k)

@@ -62,6 +62,14 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _GatherNeighbors.apply(x, idx)
 
 
+def edge_feature(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """EdgeConv edge features concat([x_i, x_j - x_i]) [B, N, k, 2C] along
+    the given graph idx [B, N, k] (neighbors.py:123-137)."""
+    nbr = gather_neighbors(x, idx)
+    central = x[:, :, None, :].expand_as(nbr)
+    return torch.cat([central, nbr - central], dim=-1)
+
+
 def knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
     """Pairwise distance + kNN in one call. [B, N, C] -> [B, N, k]."""
     return knn(pairwise_sqdist(x), k)
@@ -88,6 +96,5 @@ def edge_feature_auto(g: torch.Tensor, f: torch.Tensor, k: int,
                       use_fused: bool = True, fast: bool = False) -> torch.Tensor:
     """EdgeConv edge features concat([f_i, f_j - f_i]) with the graph built
     on ``g`` (neighbors.py:163-178)."""
-    nbr = neighbor_features_auto(g, f, k, use_fused, fast)
-    central = f[:, :, None, :].expand_as(nbr)
-    return torch.cat([central, nbr - central], dim=-1)
+    idx = knn_graph_fused(g, k, fast=fast) if use_fused else knn_graph(g, k)
+    return edge_feature(f, idx)

@@ -29,11 +29,13 @@ import inspect
 import torch
 
 from weaksuppointcloudseg_tpu_torch.models import layers
-from weaksuppointcloudseg_tpu_torch.ops import edgeconv
+from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn
 
 # the kernels of the fused training blocks that emit BN moments, with the
-# position of the moments in their outputs
-_MOMENTS_AT = {"knn_edge": 2, "conv_minmax": 4, "conv_nmax": 4}
+# position of the moments in their outputs (knn_edge_pre: a static-graph
+# stage, whose indices come from a replayed knn_edge)
+_MOMENTS_AT = {"knn_edge": 2, "knn_edge_pre": 1, "conv_minmax": 4,
+               "conv_nmax": 4}
 
 
 @contextlib.contextmanager
@@ -69,8 +71,9 @@ def record():
 @contextlib.contextmanager
 def replay(tape):
     """Run the fused blocks with the recorded indices and moments: kNN
-    returns the recorded neighbours (y1 and its extrema computed at them by
-    the plain formulas) and every kernel's moments are the recorded ones."""
+    returns the recorded neighbours (y1, its extrema and, when asked, the
+    squared distances computed at them by the plain formulas) and every
+    kernel's moments are the recorded ones."""
     calls = iter(tape)
 
     def wrap(name, fn):
@@ -81,10 +84,12 @@ def replay(tape):
             if idx is None:
                 out = list(fn(*args, **kwargs))
             else:
-                _, v, u, _ = args
+                g, v, u, _ = args
+                idx = idx.to(v.device)
                 out = list(edgeconv.edge_outputs_ref(
-                    idx.to(v.device), v, u,
-                    with_minmax=kwargs.get("with_minmax", False)))
+                    idx, v, u, with_minmax=kwargs.get("with_minmax", False)))
+                if kwargs.get("with_values"):
+                    out.append(_distances_at(g, idx, kwargs["fast"]))
             out[_MOMENTS_AT[name]] = mom.to(out[_MOMENTS_AT[name]].device)
             return tuple(out)
         return replayed
@@ -93,6 +98,17 @@ def replay(tape):
         yield
     if next(calls, None) is not None:
         raise RuntimeError("replay: the run made fewer calls than were recorded")
+
+
+def _distances_at(g, idx, fast: bool):
+    """The squared distances B1 returns with its graph, at the given
+    indices: in fast mode clamped at 0 with the packed index bits dropped
+    (ops/knn.py::select_ref)."""
+    d = torch.gather(knn.distances(g), 2, idx.long())
+    if fast:
+        keep = ~((1 << knn.idx_bits(g.shape[1])) - 1)
+        d = (torch.clamp_min(d, 0.0).view(torch.int32) & keep).view(torch.float32)
+    return d
 
 
 def grad_errors(model, got, want):
