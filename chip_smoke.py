@@ -63,9 +63,23 @@ Phases:
  10. convergence: the four synthetic recipes of
      ``utils/synth_convergence.py`` (ShapeNet f32 exact, bf16 fast, bf16
      fast static graph; S3DIS bf16 fast) at the reference's calibrated
-     size, held to its bars.
+     size, held to its bars;
+ 11. the unfused routes (``use_fused_knn=False``) at full width: the bf16
+     eval forwards of ShapeNet (32 x 3000: B14 four times, no B1/B7/B8/B12)
+     and S3DIS (14 x 4096: B14 three times); one bf16 Full-style ShapeNet
+     step through ``ShapeNetTrainer`` (32 x 2 x 2048: B14 in the forward,
+     B13 in the backward, B12 in the smoothness loss) with its time, peak
+     memory, device time by kernel and idle share, and against the CPU
+     replaying the card's kNN graphs and batch moments; bench.py's
+     ``xla_everywhere_baseline`` (the f32 unfused step, exact kNN) and
+     ``vs_xla_everywhere`` of the flagship step and both eval forwards;
+     ``lp_dense_lu_3000``, ``lp_cg_factored_3000``, ``lp_cg_matfree_3000``
+     and ``lp_cg_matfree_32768`` with bench.py's inputs, and the LU against
+     an f64 solve; both test CLIs with ``--LPSolver solve`` (the ShapeNet
+     loop's ms per batch and idle share with its one-batch lag).
 
-Phase 2 also holds B10 and B17 (the Gaussian-affinity matvec) to their
+Phase 2 also holds B14 (the bf16 row gather) to its plain version
+bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
 skipped, and B11 (the first conv on a given graph) to B1's output at
 B1's own graph and to its plain version at the static stages' shapes.
@@ -89,6 +103,8 @@ import numpy as np
 
 B, N, K = 32, 3000, 20  # the ShapeNet test batch (bench.py's eval shape)
 TB, TN = 64, 2048  # the Full-style training batch: 32 unique clouds x 2
+# ms of the measurements a later phase compares with, in this run
+MEASURED = {}
 
 
 def card_line() -> str:
@@ -525,6 +541,44 @@ def check_scatter_add(gen, report):
         "scatter_add (B13)", "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_add.cu",
         "weaksuppointcloudseg_tpu/ops/scatter_pallas.py:358", max_err, ms,
         plain_ms, bnd, library_ms=lib_ms))
+
+
+def check_gather_rows(gen, report):
+    """B14 against its plain version (indexing), bitwise, at the unfused
+    bf16 route's shapes: B=64 clouds of N=2048 points, k=20, with C=64
+    (stages 1-2) and C=3 (the transform net and stage 0 of ShapeNet), and
+    S3DIS's stage 0, B=28 blocks of N=4096 points with C=9. The library
+    yardstick is ``f[bi, idx]`` with the int64 indices ready."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import gather
+
+    times = {}
+    for b, n, c in ((TB, TN, 64), (TB, TN, 3), (RB, RN, 9)):
+        f = bf16_randn(gen, (b, n, c))
+        idx = torch.randint(0, n, (b, n, K), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        got = gather.gather_rows(f, idx)
+        want = gather.gather_rows_ref(f, idx)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                f"gather_rows B={b} N={n} C={c}: not bitwise equal")
+        ms = timed_ms(lambda: gather.gather_rows(f, idx))
+        plain_ms = timed_ms(lambda: gather.gather_rows_ref(f, idx))
+        bi = torch.arange(b, device="cuda")[:, None, None]
+        idx64 = idx.long()
+        lib_ms = timed_ms(lambda: f[bi, idx64])
+        bnd = bound(0.0, "bf16", nbytes(f, idx, got))
+        times[c] = (ms, plain_ms, bnd, lib_ms)
+        print(f"  gather_rows B={b} N={n} k={K} C={c}: bitwise equal; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, f[bi, idx] {lib_ms:.4f} "
+              f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% "
+              f"of bound")
+    ms, plain_ms, bnd, lib_ms = times[64]
+    report.append(kernel_row(
+        "gather_rows (B14)", "weaksuppointcloudseg_tpu_torch/ops/csrc/gather_rows.cu",
+        "weaksuppointcloudseg_tpu/ops/gather_pallas.py:64", 0.0, ms, plain_ms,
+        bnd, library_ms=lib_ms))
 
 
 PB, PN = 32, 2048  # the Plain-style bf16 training batch (bench.py:443-452)
@@ -1104,6 +1158,7 @@ def phase_kernels(report):
     check_conv_znmax(gen, report)
     check_knn(gen, report)
     check_scatter_add(gen, report)
+    check_gather_rows(gen, report)
     check_conv_minmax(gen, report)
     check_conv_kmax_bwd(gen, report)
     check_scatter_bn_bwd(gen, report)
@@ -1301,6 +1356,7 @@ def phase_end_to_end(report) -> None:
     fwd_ms = timed_ms(forward)
     lp_ms = timed_ms(lambda: propagate_batch(x, prob_t))
     e2e_ms = timed_ms(e2e)
+    MEASURED["shapenet_eval_forward_throughput"] = fwd_ms
     card = card_line()
     for metric, ms in (("shapenet_eval_forward_throughput", fwd_ms),
                        ("label_propagation (cg)", lp_ms),
@@ -1607,7 +1663,8 @@ def time_fixed_batch(trainer, batch, n_unique, metric, what, gate=1.0):
     """Six steps of ``trainer`` on one batch (rampup ``gate``): every loss
     finite, the seg loss falling; prints ``metric`` (unique points/s over
     the median of the last five steps, host clock around a synchronise),
-    the peak memory, the device time by kernel and the idle share."""
+    the peak memory, the device time by kernel and the idle share. Returns
+    the median step's ms."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -1639,6 +1696,7 @@ def time_fixed_batch(trainer, batch, n_unique, metric, what, gate=1.0):
           f"median step {step * 1e3:.3f} ms = {1 - busy_ms / (step * 1e3):.3f}; "
           f"the profiler's own cost: its wall {wall_ms:.3f} ms - median step "
           f"= {wall_ms - step * 1e3:.3f} ms")
+    return step * 1e3
 
 
 def check_full_epoch(res) -> None:
@@ -1702,10 +1760,10 @@ def shapenet_full_cli(kernels, *flags):
 
 
 def full_trainer(ds, preset: str, **model):
-    """A bf16 ``knn_fast`` Full-style trainer of ``preset`` (rampup 0) on
-    ``ds`` at bench.py's unique batch (PB clouds or RB // 2 blocks), with
-    ``model`` fields replaced, and one Siamese batch of its training split
-    on the card."""
+    """A Full-style trainer of ``preset`` (rampup 0), bf16 and ``knn_fast``
+    unless ``model`` replaces them or other fields, on ``ds`` at bench.py's
+    unique batch (PB clouds or RB // 2 blocks), and one Siamese batch of
+    its training split on the card."""
     import dataclasses
 
     from weaksuppointcloudseg_tpu_torch import configs
@@ -1717,9 +1775,9 @@ def full_trainer(ds, preset: str, **model):
 
     base = getattr(configs, f"{preset}_config")()
     ub = PB if preset == "shapenet" else RB // 2
+    model = {"compute_dtype": "bfloat16", "knn_fast": True, **model}
     cfg = dataclasses.replace(
-        base, model=dataclasses.replace(base.model, compute_dtype="bfloat16",
-                                        knn_fast=True, **model),
+        base, model=dataclasses.replace(base.model, **model),
         train=dataclasses.replace(base.train, batch_size=ub, style="Full",
                                   rampup=0))
     if preset == "shapenet":
@@ -1758,8 +1816,9 @@ def phase_full_train(report) -> None:
                         "the bf16 Full ShapeNet path")
     trainer, batch = full_trainer(ds, "shapenet")
     cfg = trainer.cfg
-    time_fixed_batch(trainer, batch, PB * PN, "shapenet_full_train_throughput",
-                     "bf16 Full train step")
+    MEASURED["shapenet_full_train_throughput"] = time_fixed_batch(
+        trainer, batch, PB * PN, "shapenet_full_train_throughput",
+        "bf16 Full train step")
 
     # the smoothness-loss block on its own, at one step's probabilities and
     # reused graph: the kernel route (B6 gather, B6 scatter) against the
@@ -2068,6 +2127,7 @@ def phase_s3dis_test(report) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     fwd_ms, e2e_ms = timed_ms(forward), timed_ms(e2e)
+    MEASURED["s3dis_eval_forward_throughput"] = fwd_ms
     for metric, ms in (("s3dis_eval_forward_throughput", fwd_ms),
                        ("s3dis_test_e2e_throughput", e2e_ms)):
         print(f"  {metric}: {ms:.3f} ms per {bs}x{n} batch, "
@@ -2347,6 +2407,407 @@ def phase_convergence(report) -> None:
     require(all(bars.values()), "a convergence run is below its bar")
 
 
+# --------------------------------------------------------------- phase 11
+
+def unfused_kernels():
+    """The kernels an unfused route (``use_fused_knn=False``) may reach,
+    with those it must not: B14's gathers, B13's scatter, B12 (only in
+    the smoothness loss), and the fused blocks' B1/B7/B8."""
+    from weaksuppointcloudseg_tpu_torch.ops import (
+        conv_kmax,
+        edgeconv,
+        gather,
+        knn,
+        scatter,
+    )
+
+    return {"gather_rows (B14)": gather.gather_rows,
+            "scatter_add (B13)": scatter.scatter_add, "knn (B12)": knn.knn,
+            "knn_edge (B1)": edgeconv.knn_edge,
+            "conv_zmax (B7)": conv_kmax.conv_zmax,
+            "conv_znmax (B8)": conv_kmax.conv_znmax}
+
+
+def unfused_model(preset: str, dtype: str, seed: int):
+    """``full_width_model``'s weights without the fused kNN, in ``dtype``
+    (f32: exact kNN, bench.py's xla_everywhere configuration)."""
+    import dataclasses
+
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
+
+    cfg, model = full_width_model(seed=seed, preset=preset)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, use_fused_knn=False,
+                              knn_fast=dtype == "bfloat16")
+    unfused = DGCNNSeg(cfg)
+    unfused.load_state_dict(model.state_dict())
+    return unfused.cuda().eval()
+
+
+def eval_inputs(preset: str):
+    """bench.py's eval batches: 32 unit-sphere ShapeNet views of 3000 points
+    with categories, or 14 S3DIS blocks of 4096 points (phase 8's)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.utils.tools import onehot_encode
+
+    rng = np.random.default_rng(0)
+    if preset == "shapenet_config":
+        xyz = rng.standard_normal((B, N, 3)).astype(np.float32)
+        xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True).max(1, keepdims=True)
+        cat = torch.from_numpy(onehot_encode(rng.integers(0, 16, B), 16))
+        return torch.from_numpy(xyz).cuda(), cat.cuda()
+    bs, n = RB // 2, RN
+    xyz = rng.uniform(0, 1, (bs, n, 3)) * np.array([1.0, 1.0, 3.0])
+    rgb = rng.uniform(0, 1, (bs, n, 3))
+    feat = np.concatenate([xyz - xyz.mean(1, keepdims=True), rgb,
+                           xyz / np.array([1.0, 1.0, 3.0])], -1)
+    return torch.from_numpy(feat.astype(np.float32)).cuda(), None
+
+
+def unfused_forward(preset, dtype, report_counts, card):
+    """One eval forward of the unfused ``dtype`` model at bench.py's eval
+    shape, with its launch counts, then its time (median of 10) and peak
+    memory. Returns (ms, launches, the forward)."""
+    import torch
+
+    model = unfused_model(preset, dtype, seed=0 if preset == "shapenet_config"
+                          else 2)
+    x, cat = eval_inputs(preset)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x, cat)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = count_launches(unfused_kernels(), forward)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()) and out.shape[:2] == x.shape[:2],
+            f"unfused {dtype} {preset} forward output")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = timed_ms(forward)
+    print(f"  {preset.split('_')[0]} {dtype} eval forward, {x.shape[0]} x "
+          f"{x.shape[1]}: {ms:.3f} ms, {x.shape[0] * x.shape[1] / ms * 1e3:.0f} "
+          f"points/s; peak device memory {peak:.2f} GiB; launches {launches} "
+          f"[{card}]")
+    report_counts.append(launches["gather_rows (B14)"])
+    return ms, launches, forward
+
+
+def unfused_step_vs_cpu(cfg, sub):
+    """One bf16 unfused Full-style step (forward, the four losses, backward)
+    of full-width random weights on ``sub`` on the card and on the CPU, the
+    CPU replaying the card's kNN graphs and batch moments
+    (utils/replay.py::record_plain): exact ties of bf16 distances may be
+    ordered differently by the two devices, and one ulp of a moment moves
+    every later rounding. Returns (loss rel err, logits rel RMS, {leaf:
+    error}, the null-gradient leaves)."""
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    outs, tape = [], None
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(cfg.model, seed=1).to(dev)
+        with (replay.record_plain() if dev == "cuda"
+              else replay.replay_plain(tape)) as t:
+            total, comps, logits = loss_fn(
+                model, {k: v.to(dev) for k, v in sub.items()}, cfg=cfg,
+                style="Full", bn_decay=0.5, gate=1.0)
+            total.backward()
+        tape = tape or t
+        outs.append(({k: float(v.detach()) for k, v in comps.items()},
+                     logits.detach().float().cpu(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_c, got_l, got_g), (want_c, want_l, want_g) = outs
+    errs, null = replay.grad_errors(model, got_g, want_g)
+    # agg_conv.beta's true gradient cancels too: the global feature feeds
+    # seg_conv1, whose batch-moment BN makes its cotangent sum to zero over
+    # the clouds, so on every channel that is active in every cloud the
+    # sum over clouds is rounding noise; it is held like the biases
+    top = max(float(w.double().norm()) for w in want_g.values())
+    errs["agg_conv.beta"] = float(
+        (got_g["agg_conv.beta"] - want_g["agg_conv.beta"]).double().norm()) / top
+    null = null | {"agg_conv.beta"}
+    return (max(abs(got_c[k] - want_c[k]) / abs(want_c[k]) for k in want_c),
+            ((got_l - want_l).norm() / want_l.norm()).item(), errs, null)
+
+
+def lp_inputs(n: int, seed: int = 0):
+    """bench.py::time_lp's inputs: one cloud of n standard-normal points
+    scaled into the unit sphere, probabilities a softmax of standard-normal
+    logits over 50 classes; rgb=None (ShapeNet's LP)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xyz = rng.standard_normal((1, n, 3)).astype(np.float32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True).max(1, keepdims=True)
+    g = torch.softmax(torch.from_numpy(
+        rng.standard_normal((1, n, 50)).astype(np.float32)), -1)
+    return torch.from_numpy(xyz).cuda(), g.cuda()
+
+
+def check_solve_f64(card):
+    """The card's f32 LU (solver "solve") at lp_dense_lu_3000's inputs
+    against an f64 solve of the same f32 system: the normwise error within
+    kappa * sqrt(N) * 2^-24, the usual estimate of an f32 LU's forward
+    error (ROADMAP C1: a TF32 product would miss it by ~100x)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop, laplacian
+
+    xyz, g = lp_inputs(N)
+    lap = laplacian.laplacian_xyz_rgb(xyz, xyz)
+    y, _, w = label_prop.label_propagation(lap, g)
+    a = lap[0].double() + torch.diag(w[0].double() + 1e-5)
+    y64 = torch.linalg.solve(a, (w[0, :, None] * g[0]).double())
+    ev = torch.linalg.eigvalsh(a)
+    kappa = (ev.max() / ev.min()).item()
+    err = ((y[0].double() - y64).norm() / y64.norm()).item()
+    limit = kappa * N ** 0.5 * 2.0 ** -24
+    print(f"  solve vs f64 at lp_dense_lu_3000's inputs: normwise rel err "
+          f"{err:.3e}, kappa {kappa:.2f}, bound kappa sqrt(N) 2^-24 = "
+          f"{limit:.3e} [{card}]")
+    require(kappa > 0 and err <= limit, "the card's LU misses its f64 bound")
+
+
+def unfused_routes(card, lap):
+    """Phase 11's model runs: the bf16 unfused eval forwards of both
+    presets, a bf16 unfused Full-style ShapeNet step (and against the CPU),
+    bench.py's f32 xla_everywhere_baseline and vs_xla_everywhere. Returns
+    B14's launches on the counted runs."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    main_path = []
+    # bf16 eval forwards: B14 per gather, no selection kernel
+    for preset, want in (("shapenet_config", 4), ("s3dis_config", 3)):
+        _, launches, forward = unfused_forward(preset, "bfloat16", main_path,
+                                               card)
+        check_launch_counts(launches, {
+            "gather_rows (B14)": want, "knn_edge (B1)": 0, "conv_zmax (B7)": 0,
+            "conv_znmax (B8)": 0, "knn (B12)": 0, "scatter_add (B13)": 0},
+            f"bf16 unfused {preset} eval forward")
+        if preset == "shapenet_config":
+            device_breakdown(forward, card, what="bf16 unfused eval forward")
+
+    lap("eval forwards")
+    # a bf16 Full-style ShapeNet step through ShapeNetTrainer at bench.py's
+    # shape (knn_fast in the smoothness loss's B12)
+    rng = np.random.default_rng(1)  # phase 5's split
+    splits = {"train": synthetic_split(3 * PB, rng),
+              "val": synthetic_split(24, rng)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = in_memory_dataset(tmp, splits)
+        ds.split("train")
+        ds.split("val")
+    trainer, batch = full_trainer(ds, "shapenet", use_fused_knn=False)
+    _, launches = count_launches(
+        unfused_kernels(),
+        lambda: trainer.train_step(batch, 1.0, trainer.generator))
+    torch.cuda.synchronize()
+    print(f"  bf16 unfused Full step, {PB} x 2 x {PN}: launches {launches}")
+    check_launch_counts(launches, {
+        "gather_rows (B14)": 4, "scatter_add (B13)": 3, "knn (B12)": 1,
+        "knn_edge (B1)": 0}, "bf16 unfused Full step")
+    main_path.append(launches["gather_rows (B14)"])
+    time_fixed_batch(trainer, batch, PB * PN,
+                     "shapenet_full_train_throughput (bf16, use_fused_knn="
+                     "False)", "bf16 unfused Full train step")
+    # the step on the card against the CPU at 2 unique x 2 clouds, dropout
+    # off, phase 5's limits: loss 2e-3 relative, logits 0.1 relative RMS,
+    # every leaf 0.4 of its norm, the null-gradient leaves (the conv biases
+    # in front of a BN, and agg_conv.beta) 1.5e-2 of the largest leaf norm
+    # (what differs, with the graphs and moments replayed, is each conv's
+    # f32 summation order before its bf16 rounding)
+    small = dataclasses.replace(trainer.cfg, model=dataclasses.replace(
+        trainer.cfg.model, head_keep_prob=(None, None, None)))
+    sub = {k: v[:4] for k, v in batch.items()}
+    loss_err, lg_err, errs, null = unfused_step_vs_cpu(small, sub)
+    leaf = sorted((e, n) for n, e in errs.items() if n not in null)
+    null_err = max(e for n, e in errs.items() if n in null)
+    print(f"  CUDA vs CPU replaying the card's graphs and moments, one bf16 "
+          f"unfused step, 2 x 2 x {PN} points: loss rel err {loss_err:.2e}, "
+          f"logits rel RMS {lg_err:.2e}, leaf gradients (relative norm of "
+          f"the difference), worst: " + ", ".join(
+              f"{n} {e:.2e}" for e, n in leaf[-3:][::-1])
+          + f"; median {leaf[len(leaf) // 2][0]:.2e}; null-gradient leaves "
+          f"{null_err:.2e} of the largest leaf norm (agg_conv.beta "
+          f"{errs['agg_conv.beta']:.2e})")
+    require(loss_err <= 2e-3 and lg_err <= 0.1 and leaf[-1][0] <= 0.4
+            and null_err <= 1.5e-2, "the bf16 unfused step disagrees with "
+            "the CPU")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    lap("bf16 unfused step and its CPU check")
+
+    # bench.py's anchor: f32, no fused kNN, exact selection (the plain
+    # distance + stable sort on the card)
+    trainer, batch = full_trainer(ds, "shapenet", compute_dtype="float32",
+                                  use_fused_knn=False, knn_fast=False)
+    _, launches = count_launches(
+        unfused_kernels(),
+        lambda: trainer.train_step(batch, 1.0, trainer.generator))
+    check_launch_counts(launches, {
+        "gather_rows (B14)": 0, "scatter_add (B13)": 3, "knn (B12)": 1,
+        "knn_edge (B1)": 0}, "f32 unfused Full step")
+    xla_ms = time_fixed_batch(trainer, batch, PB * PN,
+                              "xla_everywhere_baseline", "f32 unfused Full step")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    ratios = {"shapenet_full_train_throughput":
+              xla_ms / MEASURED["shapenet_full_train_throughput"]}
+    for preset, metric in (("shapenet_config", "shapenet_eval_forward_throughput"),
+                           ("s3dis_config", "s3dis_eval_forward_throughput")):
+        ms, launches, _ = unfused_forward(preset, "float32", [], card)
+        check_launch_counts(launches, {
+            "gather_rows (B14)": 0, "knn_edge (B1)": 0, "knn (B12)": 0},
+            f"f32 unfused {preset} eval forward")
+        ratios[metric] = ms / MEASURED[metric]
+    for metric, r in ratios.items():
+        print(f"  {metric} vs_xla_everywhere: {r:.3f} (the f32 unfused time "
+              f"over the metric's, both this run) [{card}]")
+
+    return sum(main_path)
+
+
+def lp_metrics(card, lap):
+    """bench.py's LP metrics with its time_lp inputs, and the LU against
+    f64."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.propagate import label_prop
+
+    # bench.py's LP metrics: ms per sample, median of 10
+    for solver, n, metric in (("solve", N, "lp_dense_lu_3000"),
+                              ("cg", N, "lp_cg_factored_3000"),
+                              ("cg_matfree", N, "lp_cg_matfree_3000"),
+                              ("cg_matfree", 32768, "lp_cg_matfree_32768")):
+        xyz, g = lp_inputs(n)
+        torch.cuda.reset_peak_memory_stats()
+        y = label_prop.propagate_batch(xyz, g, solver=solver)
+        require(bool(torch.isfinite(y).all()) and y.shape == g.shape,
+                f"{metric} output")
+        ms = timed_ms(lambda: label_prop.propagate_batch(xyz, g, solver=solver))
+        print(f"  {metric}: {ms:.3f} ms per sample; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        lap(metric)
+    check_solve_f64(card)
+    lap("the f64 check")
+
+
+
+def solve_test_clis(card, lap):
+    """Both test CLIs with --LPSolver solve: ShapeNet on phase 3's test set
+    (the lagged loop's ms per batch and idle share), S3DIS on phase 8's
+    area."""
+    import os
+    import tempfile
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.cli import test_shapenet
+    from weaksuppointcloudseg_tpu_torch.train.loop import ShapeNetTrainer
+    from weaksuppointcloudseg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    # the test CLIs with --LPSolver solve: ShapeNet on phase 3's test set
+    # (the one-batch lag; its idle share), S3DIS on phase 8's area
+    kernels = unfused_kernels()
+    real_test, loops = ShapeNetTrainer.test, []
+
+    def timed_test(self, *a, **kw):  # the trainer's loop alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_test(self, *a, **kw)
+        torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def profiled_test(self, *a, **kw):
+        out = []
+        loops.append(device_breakdown(
+            lambda: out.append(real_test(self, *a, **kw)), card, runs=1,
+            what="ShapeNetTrainer.test --LPSolver cg (lagged loop)"))
+        return out[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_raw_testset(tmp)
+        ckpt = save_checkpoint(f"{tmp}/ckpt.npz", full_width_model()[1])
+        argv = ["--DataPath", tmp, "--Checkpoint", ckpt, "--Precision",
+                "bfloat16", "--FastKNN", "--batchsize", str(B), "--LPSolver",
+                "solve"]
+        test_shapenet.main(argv)  # first calls
+        lap("the ShapeNet test CLI's first run")
+        torch.cuda.reset_peak_memory_stats()
+        with patched(ShapeNetTrainer, "test", timed_test):
+            res, launches = count_launches(kernels,
+                                           lambda: test_shapenet.main(argv))
+        batches = launches["conv_znmax (B8)"] // 2
+        print(f"  cli.test_shapenet --LPSolver solve: the test loop "
+              f"{loops[-1]:.1f} ms for {batches} batches, "
+              f"{loops[-1] / batches:.1f} ms per batch (test-set reads "
+              f"included); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+              f"{launches} [{card}]")
+        for key in ("perdata_miou", "pershape_miou", "accuracy"):
+            require(np.isfinite(res[key]) and 0.0 <= res[key] <= 1.0,
+                    f"test CLI --LPSolver solve: {key} = {res[key]}")
+        lap("its timed run")
+        # the idle share under the profiler with the default solver ("cg"):
+        # MAGMA's batched LU launches kernels per column (pivot search, row
+        # swaps), and one profiled run of this loop with it took ~7 minutes
+        with patched(ShapeNetTrainer, "test", profiled_test):
+            test_shapenet.main(argv[:-2])
+        busy_ms, wall_ms = loops[-1]
+        print(f"  idle share of the lagged test loop, --LPSolver cg (under "
+              f"the profiler): 1 - busy {busy_ms:.3f} / wall {wall_ms:.3f} "
+              f"ms = {1 - busy_ms / wall_ms:.3f}")
+    lap("the ShapeNet test CLI")
+    _, model = full_width_model(seed=2, preset="s3dis_config")
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = f"{tmp}/indoor3d_sem_seg_hdf5_data"
+        write_s3dis_split(data_path, np.random.default_rng(3), 2, 2)
+        write_raw_area(tmp, np.random.default_rng(4))
+        os.makedirs(f"{tmp}/run/Checkpoint")
+        ckpt = save_checkpoint(f"{tmp}/run/Checkpoint/ckpt.npz", model)
+        argv = ["--DataPath", data_path, "--RoomsPath", tmp, "--Checkpoint",
+                ckpt, "-sty", "Full", "-bs", str(RB // 2), "--Precision",
+                "bfloat16", "--FastKNN", "--LPSolver", "solve"]
+        res, launches, matvecs, wall = run_test_cli(
+            argv, f"{tmp}/run/Prediction", kernels)
+    print(f"  cli.test_s3dis --LPSolver solve: {wall:.2f} s wall for "
+          f"{len(TEST_ROOMS)} rooms; mIoU {res['miou']:.4f}; CG runs "
+          f"{len(matvecs)}; launches {launches} [{card}]")
+    require(not matvecs, "the solve test path ran a CG")
+
+
+def phase_unfused(report) -> None:
+    """The unfused routes at full width (use_fused_knn=False): the bf16
+    eval forwards of both presets and a bf16 Full-style ShapeNet step over
+    B14 (backward B13, smoothness B12), against the CPU; bench.py's f32
+    xla_everywhere_baseline and vs_xla_everywhere; the LP metrics with the
+    dense LU; both test CLIs with --LPSolver solve."""
+    print(f"phase 11: the unfused routes (use_fused_knn=False) at full width, "
+          f"LP solve, the LP metrics")
+    card = card_line()
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into the "
+              f"phase)")
+
+    b14 = unfused_routes(card, lap)
+    lap("xla_everywhere")
+    lp_metrics(card, lap)
+    solve_test_clis(card, lap)
+    for row in report:
+        if row["name"] == "gather_rows (B14)":
+            row["launches"] = b14
+    print(f"  B14 launches on this phase's counted runs: {b14}")
+
+
 def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
                      what: str = "e2e", ops: int = 0):
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler)
@@ -2396,6 +2857,7 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 KERNEL_GROUPS = (
     ("knn_edge_pre_kernel", "B11"), ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
     ("KnnOut", "B12"), ("WGatherOut", "B9"), ("affinity_kernel", "B10"),
+    ("gather_rows_kernel", "B14"),
     ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
     ("scatter_add_weighted", "B6 scatter"),
     ("scatter_add_kernel", "B13"), ("conv_minmax", "B2"),
@@ -2426,7 +2888,8 @@ def main() -> int:
     report = []
     for phase in (phase_kernels, phase_end_to_end, phase_train,
                   phase_plain_train, phase_full_train, phase_s3dis_train,
-                  phase_s3dis_test, phase_static_graph, phase_convergence):
+                  phase_s3dis_test, phase_static_graph, phase_convergence,
+                  phase_unfused):
         t0 = time.perf_counter()
         phase(report)
         print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s wall)")

@@ -21,6 +21,7 @@ from weaksuppointcloudseg_tpu_torch.ops import (
     affinity,
     conv_kmax,
     edgeconv,
+    gather,
     knn,
     scatter,
     wgather,
@@ -523,8 +524,9 @@ def test_model_gate_on_cuda(gen):
     """bf16 + fused kNN runs the fused kernels (counters grow) and agrees
     with the same composition over the plain versions on the CPU; its
     Full-style loss runs B6; f32 + use_fused_knn runs B12 at eval and
-    agrees with the CPU; the configurations still unported raise and name
-    their kernels."""
+    agrees with the CPU; without the fused kNN bf16 gathers through B14
+    and f32 by indexing, neither selecting with B1 or B12
+    (test_unfused_forward_on_cuda holds them to the CPU)."""
     cfg = dataclasses.replace(configs.shapenet_config().model,
                               compute_dtype="bfloat16", knn_fast=True)
     model = DGCNNSeg(cfg).eval()
@@ -566,12 +568,16 @@ def test_model_gate_on_cuda(gen):
             wgather.knn_wgather.launches - before[1],
             scatter.scatter_add_weighted.launches - before[2]) == (1, 0, 1)
     assert all(bool(torch.isfinite(v)) for v in comps.values())
-    unfused = DGCNNSeg(dataclasses.replace(cfg, use_fused_knn=False)).cuda()
-    with pytest.raises(NotImplementedError, match="B14"):
-        unfused(x, cat)
-    f32_unfused = DGCNNSeg(dataclasses.replace(f32_cfg, use_fused_knn=False)).cuda()
-    with pytest.raises(NotImplementedError, match="use_fused_knn"):
-        f32_unfused(x, cat)
+    for c, b14 in ((cfg, 4), (f32_cfg, 0)):
+        unfused = DGCNNSeg(dataclasses.replace(c, use_fused_knn=False)).cuda()
+        before = (gather.gather_rows.launches, edgeconv.knn_edge.launches,
+                  knn.knn.launches)
+        with torch.inference_mode():
+            out = unfused.eval()(x, cat)
+        assert bool(torch.isfinite(out).all())
+        assert (gather.gather_rows.launches - before[0],
+                edgeconv.knn_edge.launches - before[1],
+                knn.knn.launches - before[2]) == (b14, 0, 0)
 
 
 def mag_sum_ok(got, want, mags, tol=1e-5):
@@ -697,10 +703,11 @@ def affinity_errors(got, feat, u, transposed):
 
 @pytest.mark.parametrize("n,k,transposed", [
     (701, 13, True), (333, 1, True), (128, 16, True), (1000, 13, False),
-    (129, 1, False)])
+    (129, 1, False), (500, 50, True), (300, 17, False)])
 def test_affinity_kernel(gen, n, k, transposed):
     """B10 (transposed) and B17 against their plain versions at odd N, the
-    CG's K=13 and the degree pass's K=1, F=6 and F=3."""
+    CG's K=13 (S3DIS) and K=50 (ShapeNet: four launches of at most 16
+    classes), the degree pass's K=1, F=6 and F=3."""
     for f in (6, 3):
         feat = torch.rand((2, n, f), generator=gen, device="cuda") * 2.0
         u = torch.randn((2, n, k), generator=gen, device="cuda")
@@ -710,7 +717,7 @@ def test_affinity_kernel(gen, n, k, transposed):
         before = fn.launches
         got = fn(feat, u)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1 and got.shape == u.shape
+        assert fn.launches == before + -(-k // 16) and got.shape == u.shape
         assert affinity_errors(got, feat, u, transposed) <= 1.0
 
 
@@ -741,11 +748,12 @@ def test_affinity_kernel_skips_far_tiles(gen):
 
 
 def test_affinity_kernel_refuses(gen):
-    """K above 16, F above 6, a tile mask of another shape, and operands
-    on two devices raise."""
+    """No classes, F above 6, a tile mask of another shape, and operands
+    on two devices raise (K above 16 runs in groups of 16,
+    test_affinity_kernel)."""
     feat_t = torch.rand((1, 6, 300), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="K=17"):
-        affinity.affinity_matvec_t(feat_t, torch.ones((1, 17, 300), device="cuda"))
+    with pytest.raises(ValueError, match="K=0"):
+        affinity.affinity_matvec_t(feat_t, torch.ones((1, 0, 300), device="cuda"))
     with pytest.raises(ValueError, match="F=7"):
         affinity.affinity_matvec(torch.rand((1, 300, 7), device="cuda"),
                                  torch.ones((1, 300, 2), device="cuda"))
@@ -974,3 +982,181 @@ def test_static_f32_on_cuda(gen):
     logits.square().mean().backward()
     assert (knn.knn.launches - before[0],
             scatter.scatter_add.launches - before[1]) == (1, 3)
+
+
+# ---------------------------------------------------------------- B14
+
+@pytest.mark.parametrize("b,n,k,c", [(2, 333, 20, 3), (1, 1001, 20, 9),
+                                     (2, 517, 20, 64), (1, 64, 40, 5),
+                                     (3, 200, 7, 12)])
+def test_gather_rows_kernel(gen, b, n, k, c):
+    """B14 against its plain version, bitwise, at the unfused route's
+    widths (C=3: 6-byte rows, C=9: 18-byte rows, C=64: 128-byte rows) and
+    at widths that take 2-, 8- and 4-byte chunks; duplicates, the first
+    and the last row among the indices, k above the warp width."""
+    f = randn(gen, (b, n, c))
+    idx = torch.randint(0, n, (b, n, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[:, 0] = n - 1
+    idx[:, 1] = 0
+    before = gather.gather_rows.launches
+    got = gather.gather_rows(f, idx)
+    assert gather.gather_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16),
+                       gather.gather_rows_ref(f, idx).view(torch.int16))
+
+
+def test_gather_rows_unaligned_source(gen):
+    """A source that starts 2 bytes past an aligned address (a view one
+    element into a buffer) takes the 2-byte chunks: still bitwise."""
+    buf = randn(gen, (2 * 300 * 64 + 1,))
+    f = buf[1:].view(2, 300, 64)
+    idx = torch.randint(0, 300, (2, 300, 20), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    got = gather.gather_rows(f, idx)
+    assert torch.equal(got, gather.gather_rows_ref(f, idx))
+
+
+def test_gather_rows_refuses(gen):
+    f = randn(gen, (1, 64, 8))
+    idx = torch.zeros((1, 64, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        gather.gather_rows(f.float(), idx)
+    with pytest.raises(ValueError, match="dtype"):
+        gather.gather_rows(f, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(f.transpose(1, 2).contiguous().transpose(1, 2), idx)
+
+
+_TRAP = """
+import sys, torch
+from weaksuppointcloudseg_tpu_torch.ops import gather
+f = torch.zeros((2, 50, 9), dtype=torch.bfloat16, device="cuda")
+idx = torch.zeros((2, 50, 4), dtype=torch.int32, device="cuda")
+idx[1, 7, 2] = int(sys.argv[1])
+gather.gather_rows(f, idx)
+torch.cuda.synchronize()
+print("completed")
+"""
+
+
+def test_gather_rows_traps_out_of_range_index(gen):
+    """An index outside [0, N) stops the kernel with a device trap (no
+    clamp): the process's CUDA context is lost, so it runs in its own."""
+    import subprocess
+    import sys
+
+    gather.gather_rows(randn(gen, (1, 8, 9)),
+                       torch.zeros((1, 8, 1), dtype=torch.int32,
+                                   device="cuda"))  # built before the runs
+    runs = {v: subprocess.run([sys.executable, "-c", _TRAP, str(v)],
+                              capture_output=True, text=True, timeout=300)
+            for v in (49, 50, -1)}
+    assert runs[49].returncode == 0 and "completed" in runs[49].stdout
+    for v in (50, -1):
+        assert runs[v].returncode != 0 and "completed" not in runs[v].stdout
+
+
+@pytest.mark.parametrize("preset", ["shapenet_config", "s3dis_config"])
+def test_unfused_forward_on_cuda(gen, preset):
+    """The bf16 eval forward without the fused kNN: B14 once per gather
+    (ShapeNet: the transform net and three stages; S3DIS: three stages),
+    no B1/B7/B8/B12; against the same forward on the CPU replaying the
+    card's kNN graphs (exact bf16 distance ties may order differently on
+    the two devices): argmax agreement >= 99%, |dprob| <= 2e-2 (bf16
+    activations, another f32 summation order in every conv)."""
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    cfg = dataclasses.replace(getattr(configs, preset)().model,
+                              compute_dtype="bfloat16", use_fused_knn=False)
+    model = DGCNNSeg(cfg).eval()
+    c_in = cfg.in_channels
+    x = torch.rand((2, 700, c_in), generator=gen, device="cuda")
+    cat = torch.eye(16, device="cuda")[[3, 11]] if cfg.num_categories else None
+    kernels = (gather.gather_rows, edgeconv.knn_edge, conv_kmax.conv_zmax,
+               conv_kmax.conv_znmax, knn.knn)
+    before = [fn.launches for fn in kernels]
+    with torch.inference_mode(), replay.record_plain() as tape:
+        got = torch.softmax(model.cuda()(x, cat), -1)
+    counts = [fn.launches - b for fn, b in zip(kernels, before)]
+    assert counts == [4 if cfg.use_transform_net else 3, 0, 0, 0, 0]
+    with torch.inference_mode(), replay.replay_plain(tape):
+        want = torch.softmax(model.cpu()(x.cpu(), None if cat is None
+                                         else cat.cpu()), -1)
+    agree = (got.argmax(-1).cpu() == want.argmax(-1)).float().mean().item()
+    assert agree >= 0.99
+    assert (got.cpu() - want).abs().max().item() <= 2e-2
+
+
+def test_unfused_bf16_step_on_cuda_matches_cpu(gen):
+    """One bf16 Full-style step without the fused kNN (B14 forward, B13
+    backward, B12 in the smoothness loss) on the card against the CPU
+    replaying the card's kNN graphs and batch moments: the losses within
+    2e-3 relative, every gradient leaf within 0.1 of its largest entry
+    plus 1e-2 of the largest overall (tests/test_torch_fused_step.py's
+    bf16 step tolerances; conv sums still run in other orders)."""
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    full = configs.shapenet_config()
+    full = dataclasses.replace(full, model=dataclasses.replace(
+        full.model, compute_dtype="bfloat16", use_fused_knn=False,
+        head_keep_prob=(None, None, None)))
+    x = torch.randn((4, 512, 3), generator=gen, device="cuda") * 0.4
+    seg = torch.randint(0, 50, (4, 512), generator=gen, device="cuda")
+    batch = {"data": x, "cat_onehot": torch.eye(16, device="cuda")[[1, 1, 5, 5]],
+             "seg_onehot": torch.nn.functional.one_hot(seg, 50).float(),
+             "mask": (torch.rand((4, 512), generator=gen, device="cuda")
+                      < 0.3).float()}
+    kernels = (gather.gather_rows, scatter.scatter_add, knn.knn,
+               edgeconv.knn_edge)
+    outs, tape = [], None
+    for dev in ("cuda", "cpu"):
+        model = DGCNNSeg(full.model, seed=1).to(dev)
+        before = [fn.launches for fn in kernels]
+        ctx = replay.record_plain() if dev == "cuda" else replay.replay_plain(tape)
+        with ctx as t:
+            total, comps, _ = loss_fn(
+                model, {k: v.to(dev) for k, v in batch.items()}, cfg=full,
+                style="Full", bn_decay=0.5, gate=1.0)
+            total.backward()
+        tape = tape or t
+        if dev == "cuda":
+            assert [fn.launches - b for fn, b in zip(kernels, before)] == [
+                4, 3, 1, 0]
+        outs.append(({k: float(v.detach()) for k, v in comps.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_c, got_g), (want_c, want_g) = outs
+    for k in want_c:
+        assert abs(got_c[k] - want_c[k]) <= 2e-3 * abs(want_c[k]), k
+    scale = max(w.abs().max().item() for w in want_g.values())
+    for n, w in want_g.items():
+        err = (got_g[n] - w).abs().max().item()
+        assert err <= 0.1 * w.abs().max().item() + 1e-2 * scale, (n, err)
+
+
+def test_solve_on_cuda_matches_f64(gen):
+    """propagate_batch(solver="solve") on the card: the LU of the f32
+    system against an f64 solve of the same system (ROADMAP C1: TF32 is
+    off), normwise within kappa * sqrt(N) * 2^-24 (tests/test_torch_
+    solve.py states the bound); and the card's Y_prob within 1e-4 of the
+    CPU's."""
+    from weaksuppointcloudseg_tpu_torch.propagate import laplacian
+
+    n = 1000
+    xyz = torch.randn((2, n, 3), generator=gen, device="cuda")
+    xyz = xyz / xyz.norm(dim=-1).amax(1)[:, None, None]
+    g = torch.softmax(torch.randn((2, n, 13), generator=gen, device="cuda")
+                      * 3, -1)
+    lap = laplacian.laplacian_xyz_rgb(xyz, xyz)
+    y, y_prob, w = label_prop.label_propagation(lap, g)
+    a = lap[0].double() + torch.diag(w[0].double() + 1e-5)
+    y64 = torch.linalg.solve(a, (w[0, :, None] * g[0]).double())
+    ev = torch.linalg.eigvalsh(a)
+    kappa = (ev.max() / ev.min()).item()
+    err = ((y[0].double() - y64).norm() / y64.norm()).item()
+    assert 0 < kappa and err <= kappa * n ** 0.5 * 2.0 ** -24, (err, kappa)
+    got = label_prop.propagate_batch(xyz, g, solver="solve").cpu()
+    want = label_prop.propagate_batch(xyz.cpu(), g.cpu(), solver="solve")
+    assert (got - want).abs().max().item() <= 1e-4

@@ -193,7 +193,8 @@ def test_replay_reproduces_a_step():
 
 def test_routes_of_bf16_training():
     """On CUDA a bf16 model with the fused kNN routes training and eval to
-    the fused blocks; without the fused kNN it names B14. Its Full-style
+    the fused blocks; without the fused kNN to the plain composition (its
+    gathers through B14), as f32 does with and without it. Its Full-style
     loss takes the fused smoothness loss on the card (B6, or B9 without a
     reusable graph) and reuses the transform stage's graph where the loss
     and the stage share coordinates and k covers the loss's; f32 and the
@@ -202,10 +203,11 @@ def test_routes_of_bf16_training():
     model = DGCNNSeg(cfg.model)
     assert model._cuda_route() == "fused"
     unfused = DGCNNSeg(dataclasses.replace(cfg.model, use_fused_knn=False))
-    with pytest.raises(NotImplementedError, match="B14"):
-        unfused._cuda_route()
+    assert unfused._cuda_route() == "plain"
     f32 = DGCNNSeg(dataclasses.replace(cfg.model, compute_dtype="float32"))
     assert f32._cuda_route() == "plain"
+    f32_unfused = DGCNNSeg(dataclasses.replace(f32.cfg, use_fused_knn=False))
+    assert f32_unfused._cuda_route() == "plain"
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = dataclasses.replace(cfg, weaksup=dataclasses.replace(
         cfg.weaksup, smooth_knn=cfg.model.k))

@@ -91,15 +91,16 @@ def test_cg_norm_spans_the_batch():
 
 
 def test_other_solvers_name_their_roadmap_entry():
-    """"cg_matfree" is ported (tests/test_torch_affinity.py holds it
-    against JAX); "solve" and "sharded" raise naming their entries."""
+    """"cg_matfree" and "solve" are ported (tests/test_torch_affinity.py
+    and tests/test_torch_solve.py hold them against JAX); "sharded" raises
+    naming its entry."""
     x = torch.rand((1, 4, 3), generator=torch.Generator().manual_seed(0))
     g = torch.full((1, 4, 2), 0.5)
-    y = label_prop.propagate_batch(x, g, solver="cg_matfree")
-    assert y.shape == (1, 4, 2) and bool(torch.isfinite(y).all())
-    for solver in ("solve", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            label_prop.propagate_batch(x, g, solver=solver)
+    for solver in ("cg_matfree", "solve"):
+        y = label_prop.propagate_batch(x, g, solver=solver)
+        assert y.shape == (1, 4, 2) and bool(torch.isfinite(y).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        label_prop.propagate_batch(x, g, solver="sharded")
 
 
 def test_entropy_confidence_matches_jax():

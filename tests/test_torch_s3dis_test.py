@@ -217,14 +217,14 @@ def test_test_s3dis_flags_match_reference():
 
 def test_lp_solver_help_names_the_ported_solvers():
     """--LPSolver's help on both test CLIs names the solvers the port runs
-    (cg, cg_matfree) and the ones propagate_batch still refuses."""
+    (solve, cg, cg_matfree) and the one propagate_batch still refuses."""
     from weaksuppointcloudseg_tpu_torch.cli import test_shapenet
     from weaksuppointcloudseg_tpu_torch.propagate import label_prop
 
     for p in (test_s3dis.parser(), test_shapenet.parser()):
         (action,) = [a for a in p._actions if "--LPSolver" in a.option_strings]
         ported = [c for c in action.choices if c not in label_prop._NOT_PORTED]
-        assert ported == ["cg", "cg_matfree"]
+        assert ported == ["solve", "cg", "cg_matfree"]
         head, tail = action.help.split(";")
         assert head.endswith("ported: " + ", ".join(ported))
         assert all(c in tail for c in label_prop._NOT_PORTED)

@@ -4,13 +4,14 @@ The JAX package next to this one is the reference: every module here has its
 counterpart at the same relative path there, and the tests in
 ``tests/test_torch_*.py`` hold the two against each other on the CPU.
 
-Ported so far: the ShapeNet test path (eval forward in bf16 with the fused
-EdgeConv blocks, or in f32, then label propagation), ShapeNet Full-style
-training at the default f32 precision, and Plain- and Full-style training
-of ShapeNet and S3DIS in bf16 through the fused blocks and the fused
-smoothness loss, with thirteen hand-written Hopper kernels
-(``ops/csrc/*.cu``). The S3DIS test path, room LP and the other solvers
-are still to port (ROADMAP.md).
+Ported so far: training and test of ShapeNet and S3DIS in f32 and bf16,
+through the fused EdgeConv blocks and the fused smoothness loss or, without
+the fused kNN (``use_fused_knn=False``), through the plain composition;
+static-graph mode; label propagation with the "cg", "solve" and
+"cg_matfree" solvers and the whole-room LP; the ShapeNet test loop's
+one-batch lag. Seventeen of the JAX package's eighteen Pallas kernels have
+a hand-written Hopper counterpart (``ops/csrc/*.cu``); B15 and data
+parallelism are still to port (ROADMAP.md).
 
 This package imports neither JAX nor the JAX package: the configs, the
 ShapeNet and S3DIS readers, the augmentation and label sampling, and the

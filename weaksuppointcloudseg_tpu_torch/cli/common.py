@@ -81,8 +81,8 @@ def base_parser(dataset: str = "ShapeNet", *,
                        help="explicit checkpoint path (overrides --Datetime)")
         p.add_argument("--LPSolver", type=str, default=None,
                        choices=["solve", "cg", "cg_matfree", "sharded"],
-                       help="label-propagation solver (ported: cg, "
-                            "cg_matfree; solve and sharded are not yet)")
+                       help="label-propagation solver (ported: solve, cg, "
+                            "cg_matfree; sharded is not yet)")
     return p
 
 

@@ -89,7 +89,7 @@ class LabelPropConfig:
     xyz_bandwidth: float = 1e3
     rgb_bandwidth: float = 1e1
     ridge: float = 1e-5
-    solver: str = "cg"  # ported: "cg", "cg_matfree" (solve, sharded: not yet)
+    solver: str = "cg"  # ported: "solve", "cg", "cg_matfree" (sharded: not yet)
     cg_iters: int = 50
     cg_tol: float = 1e-5
 

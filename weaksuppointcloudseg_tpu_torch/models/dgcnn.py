@@ -19,10 +19,14 @@ where the tensors live, in place of the reference's
                                          B3/B4/B5)
   CUDA, f32, use_fused_knn            -> forward_plain, kNN by kernel B12
                                          and the gather's backward by B13
+  CUDA, bf16, no use_fused_knn        -> forward_plain, kNN by the plain
+                                         distance (IEEE f32 Gram) + stable
+                                         sort, gathers by kernel B14, their
+                                         backward by B13
+  CUDA, f32, no use_fused_knn         -> forward_plain, kNN by the plain
+                                         distance + stable sort, gathers by
+                                         indexing, their backward by B13
   CPU, anything                       -> forward_plain over plain versions
-  CUDA, anything else                 -> NotImplementedError naming the
-                                         kernels still to port (bf16
-                                         without use_fused_knn: B14)
 
 On the fused training route ``want_smooth_graph`` also returns the
 transform stage's kNN graph, which the Full-style smoothness loss reuses
@@ -32,12 +36,13 @@ Static-graph mode (``ModelConfig.static_graph``, opt-in, not reference
 parity: dgcnn.py:186-309) builds one kNN graph on the input coordinates
 and every EdgeConv stage reuses it. The graph comes from the transform
 stage (fused route: B1 on the raw kNN-input coordinates in the compute
-dtype, the graph the smoothness loss reuses too; plain route: one
-``knn_graph_fused``, B12 on the card, on the same coordinates), else from
-a fused two-conv stage 0 (B1 on the kNN channels), else from one
-standalone ``knn_graph_fused`` on the kNN channels. The fused stages then
-gather along it with kernel B11 (training and eval), the plain stages
-with ``neighbors.gather_neighbors`` (backward B13).
+dtype, the graph the smoothness loss reuses too; plain route: one kNN
+on the same coordinates, B12 with ``use_fused_knn``, else the plain
+distance + sort), else from a fused two-conv stage 0 (B1 on the kNN
+channels), else from one standalone kNN on the kNN channels. The fused
+stages then gather along it with kernel B11 (training and eval), the
+plain stages with ``neighbors.gather_neighbors`` (B14 in bf16, backward
+B13).
 
 Not ported here: EdgeConv stages of three or more convs on the fused path
 (no preset has one). The reference's ``allow_known_bad_bf16`` guard is
@@ -144,22 +149,11 @@ class DGCNNSeg(nn.Module):
                                   bn_decay=bn_decay, generator=generator)
 
     def _cuda_route(self) -> str:
-        """"fused" or "plain" on CUDA, in training and at eval alike (the
-        reference's one fused_tpu gate, dgcnn.py:141-145); raises for the
-        configurations whose kernels are not ported yet."""
-        cfg = self.cfg
-        if self.compute_dtype == torch.bfloat16:
-            if not cfg.use_fused_knn:
-                raise NotImplementedError(
-                    "bfloat16 without use_fused_knn gathers neighbors with "
-                    "kernel B14 (ops/gather_pallas.py::gather_rows_pallas), "
-                    "which is not ported yet (ROADMAP)")
+        """"fused" (bf16 with ``use_fused_knn``) or "plain" (everything
+        else) on CUDA, in training and at eval alike: the reference's one
+        fused_tpu gate (dgcnn.py:141-145)."""
+        if self.compute_dtype == torch.bfloat16 and self.cfg.use_fused_knn:
             return "fused"
-        if not cfg.use_fused_knn:
-            raise NotImplementedError(
-                "float32 without use_fused_knn would run the plain distance "
-                "+ sort kNN on the card; that route is not ported. Use "
-                "use_fused_knn (kernel B12)")
         return "plain"
 
     def forward_plain(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
@@ -167,11 +161,12 @@ class DGCNNSeg(nn.Module):
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """Plain composition (reference dgcnn.py:216-232, 300-317,
-        327-365): kNN graphs by B12 with ``use_fused_knn`` (its plain
-        version on CPU tensors), else the plain distance + sort; neighbor
-        gathers whose backward is B13. Static-graph mode: one graph on the
-        raw kNN-input coordinates in the compute dtype, which the transform
-        net and every stage gather along."""
+        327-365) in the compute dtype: kNN graphs by B12 with
+        ``use_fused_knn`` (its plain version on CPU tensors), else the plain
+        distance + sort; neighbor gathers through B14 in bf16 (indexing in
+        f32) whose backward is B13. Static-graph mode: one graph on the raw
+        kNN-input coordinates in the compute dtype, which the transform net
+        and every stage gather along."""
         cfg, dt = self.cfg, self.compute_dtype
         kw = dict(eps=cfg.bn_eps, training=training, decay=bn_decay)
         nkw = dict(use_fused=cfg.use_fused_knn, fast=cfg.knn_fast)

@@ -72,6 +72,15 @@ class Conv(nn.Module):
             self.register_buffer("var", torch.ones(out_c))
 
 
+def batch_moments(y32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-pass biased batch moments over all axes but the last of f32
+    ``y32``: (mean, var clamped at 0)."""
+    axes = tuple(range(y32.ndim - 1))
+    mean = y32.mean(dim=axes)
+    return mean, torch.clamp_min(y32.square().mean(dim=axes) - mean.square(),
+                                 0.0)
+
+
 def batch_norm(y: torch.Tensor, p: Conv, eps: float, *, training: bool = False,
                decay=None) -> torch.Tensor:
     """BN over all axes but the last, in f32, rounded to y's dtype
@@ -79,10 +88,7 @@ def batch_norm(y: torch.Tensor, p: Conv, eps: float, *, training: bool = False,
     batch moments, the variance clamped at 0, and the population stats
     updated in place as ``pop * decay + batch * (1 - decay)``."""
     if training:
-        y32 = y.float()
-        axes = tuple(range(y.ndim - 1))
-        mean = y32.mean(dim=axes)
-        var = torch.clamp_min(y32.square().mean(dim=axes) - mean.square(), 0.0)
+        mean, var = batch_moments(y.float())
         _update_bn(p, mean, var, decay)
     else:
         mean, var = p.mean, p.var

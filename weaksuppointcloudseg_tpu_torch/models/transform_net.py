@@ -46,10 +46,11 @@ class TransformNet(nn.Module):
                       training: bool = False, decay=None,
                       idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Plain path (transform_net.py:80-106): kNN graph on ``g`` (kernel
-        B12 with ``use_fused``), or the given graph ``idx`` (static-graph
-        mode), edge features of ``f``, convs with batch moments when
-        ``training``. Returns the [B, K, K] transform. ``f`` is data, so no
-        gradient reaches the neighbor gather."""
+        B12 with ``use_fused``, else the plain distance + sort), or the
+        given graph ``idx`` (static-graph mode), edge features of ``f``
+        (the gather through kernel B14 when ``f`` is bf16), convs with batch
+        moments when ``training``. Returns the [B, K, K] transform. ``f`` is
+        data, so no gradient reaches the neighbor gather."""
         kw = dict(eps=eps, training=training, decay=decay)
         ef = (neighbors.edge_feature(f, idx) if idx is not None else
               neighbors.edge_feature_auto(g, f, k, use_fused=use_fused,

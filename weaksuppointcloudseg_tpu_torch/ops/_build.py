@@ -48,6 +48,7 @@ SIGNATURES = {
     "scatter_add_weighted_launch": [P, P, P, I, I, I, I, I, P, P],
     "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
     "affinity_matvec_launch": [P, P, P, I, I, I, I, I, P, P],
+    "gather_rows_launch": [P, P, I, I, I, I, I, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

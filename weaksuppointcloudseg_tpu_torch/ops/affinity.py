@@ -20,6 +20,10 @@ pair is <= exp(-30) = 9.4e-14. Point order changes how many pairs
 are skipped, never the result; :func:`morton_order` gives spatially near
 points neighbouring positions.
 
+The kernel keeps one row's K sums in registers, up to ``K_MAX`` (16): a
+wrapper given more classes (ShapeNet's 50 parts) launches it once per group
+of at most 16, each group's sums bitwise what one wider launch would give.
+
 Each wrapper launches its CUDA kernel on CUDA tensors and takes its plain
 version (``*_ref``: row tiles of an IEEE f32 ``bmm``, clamp, exp and a
 second ``bmm``, nothing skipped) on CPU tensors; any other device raises.
@@ -135,13 +139,19 @@ def _launch(fn, feat: torch.Tensor, u: torch.Tensor,
         u_shape, feat_t = (b, n, k), feat.transpose(1, 2)
     _build.check_operand(feat, "feat", torch.float32, dev)
     _build.check_operand(u, "u", torch.float32, dev, u_shape)
-    if not (1 <= k <= K_MAX and 1 <= f <= F_MAX):
-        raise ValueError(f"{fn.__name__}: K={k} must be in [1, {K_MAX}] and "
-                         f"F={f} in [1, {F_MAX}]")
+    if not (k >= 1 and 1 <= f <= F_MAX):
+        raise ValueError(f"{fn.__name__}: K={k} must be >= 1 and F={f} in "
+                         f"[1, {F_MAX}]")
     if mask is None:
         mask = tile_mask(feat_t)
     nt = -(-n // TILE)
     _build.check_operand(mask, "mask", torch.uint8, dev, (b, nt, nt))
+    if k > K_MAX:  # one launch per group of K_MAX classes
+        dim = 1 if transposed else 2
+        return torch.cat([
+            _launch(fn, feat, u.narrow(dim, k0, min(K_MAX, k - k0)).contiguous(),
+                    mask, transposed)
+            for k0 in range(0, k, K_MAX)], dim=dim)
     out = torch.empty(u_shape, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -164,7 +174,8 @@ def affinity_matvec_t(feat_t: torch.Tensor, ut: torch.Tensor, *,
         here at ``SKIP_CUTOFF`` when None. The CPU's plain version
         computes every pair.
 
-    On CUDA: 1 <= K <= 16, 1 <= F <= 6, contiguous operands, any N.
+    On CUDA: 1 <= F <= 6, contiguous operands, any N and K (one launch
+    per group of 16 classes).
     """
     if feat_t.device.type == "cpu":
         return affinity_matvec_t_ref(feat_t, ut)

@@ -1,10 +1,13 @@
 """Pairwise distance, kNN and neighbor gather.
 
 Counterpart of weaksuppointcloudseg_tpu/ops/neighbors.py. ``knn_graph`` is
-the plain distance + sort (the reference's XLA path), which serves the CPU
-and the kernels' plain versions; the model never runs it on the card.
-``knn_graph_fused`` is kernel B12 on CUDA tensors (its plain version on CPU
-tensors), and the backward of ``gather_neighbors`` is kernel B13.
+the plain distance + stable sort (the reference's XLA path): the model runs
+it wherever ``use_fused_knn`` is off, on the card too, and it serves the
+kernels' plain versions. ``knn_graph_fused`` is kernel B12 on CUDA tensors
+(its plain version on CPU tensors). ``gather_neighbors`` gathers bf16 rows
+through kernel B14 (ops/gather.py; its plain version on CPU tensors) and
+f32 rows by indexing, as the reference leaves f32 to XLA's gather
+(neighbors.py:65-81); its backward is kernel B13 in both dtypes.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import knn as knn_ops
+from weaksuppointcloudseg_tpu_torch.ops.gather import gather_rows
 from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 
@@ -39,14 +43,17 @@ def knn(sqdist: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class _GatherNeighbors(torch.autograd.Function):
-    """Exact indexing forward; the cotangent scatter-adds back onto x's
-    rows through kernel B13 (its plain version on CPU tensors)."""
+    """Exact gather forward: bf16 rows through kernel B14, f32 rows by
+    indexing; the cotangent scatter-adds back onto x's rows through kernel
+    B13 (on CPU tensors both take their plain versions)."""
 
     @staticmethod
     def forward(ctx, x, idx):
-        idx = idx.int()
+        idx = idx.int().contiguous()
         ctx.save_for_backward(idx)
         ctx.n, ctx.dtype = x.shape[1], x.dtype
+        if x.dtype == torch.bfloat16:
+            return gather_rows(x.contiguous(), idx)
         b = torch.arange(x.shape[0], device=x.device)[:, None, None]
         return x[b, idx.long()]
 
@@ -71,8 +78,10 @@ def edge_feature(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Pairwise distance + kNN in one call. [B, N, C] -> [B, N, k]."""
-    return knn(pairwise_sqdist(x), k)
+    """Pairwise distance + kNN in one call, on x's device: [B, N, C] ->
+    int64 [B, N, k]. The indices carry no gradient, so neither the [B, N, N]
+    distances nor the sort enter autograd."""
+    return knn(pairwise_sqdist(x.detach()), k)
 
 
 def knn_graph_fused(x: torch.Tensor, k: int, fast: bool = False) -> torch.Tensor:
@@ -86,8 +95,9 @@ def neighbor_features_auto(g: torch.Tensor, f: torch.Tensor, k: int,
                            fast: bool = False) -> torch.Tensor:
     """Neighbor features f[idx(knn(g))] -> [B, N, k, C]. With ``use_fused``
     the graph comes from B12, else from the plain distance + sort (the
-    reference's f32 routes, neighbors.py:145-160). Gradients flow to ``f``
-    through the B13 scatter; ``g`` gets none."""
+    reference's routes off its fused bf16 kernel, neighbors.py:145-160);
+    the gather is :func:`gather_neighbors`. Gradients flow to ``f`` through
+    the B13 scatter; ``g`` gets none."""
     idx = knn_graph_fused(g, k, fast=fast) if use_fused else knn_graph(g, k)
     return gather_neighbors(f, idx)
 

@@ -1,18 +1,23 @@
 """Probabilistic label propagation (inference-time refinement).
 
 Counterpart of weaksuppointcloudseg_tpu/propagate/label_prop.py, solvers
-"cg" (the factored-W conjugate gradient, the default) and "cg_matfree"
-(room-level LP):
+"cg" (the factored-W conjugate gradient, the default), "solve" (batched
+dense LU) and "cg_matfree" (room-level LP):
 
     w_i = 1 - H(G_i) / log2(K)                               (confidence)
     Y   = beta * (alpha Lsym + beta diag(w) + ridge I)^-1 diag(w) G
     Y_prob = Y / sum_k Y
 
-The Laplacian is never formed: the CG matvec applies ``A v = diag v -
-alpha s (W (s v))`` with ``s = d^-1/2``. "cg" builds the affinity W once
-and leaves W @ v to ``torch.bmm`` (the reference leaves it to XLA; no
-Pallas kernel on that path). "cg_matfree" builds no [N, N] array: every
-matvec recomputes W through kernel B10 (ops/affinity.py).
+"cg" never forms the Laplacian: its matvec applies ``A v = diag v - alpha
+s (W (s v))`` with ``s = d^-1/2``, building the affinity W once and leaving
+W @ v to ``torch.bmm`` (the reference leaves it to XLA; no Pallas kernel on
+that path). "solve" builds Lsym and the system matrix and factors it with
+``torch.linalg.solve`` in IEEE f32 (the reference leaves it to
+``jnp.linalg.solve``; the package disables TF32, which would turn the
+Gram's error into affinity noise). It holds three [B, N, N] f32 arrays at
+once (Lsym, A and A's LU factors): 1.15 GB each at the ShapeNet test batch
+(32 x 3000). "cg_matfree" builds no [N, N] array: every matvec recomputes
+W through kernel B10 (ops/affinity.py).
 
 CG semantics follow ``jax.scipy.sparse.linalg.cg`` exactly as the
 reference calls it: the whole array is ONE vector, so every dot product
@@ -34,12 +39,12 @@ from weaksuppointcloudseg_tpu_torch.ops.affinity import (
     tile_mask,
 )
 from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
+    laplacian_xyz_rgb,
     product_kernel_weights,
 )
 
 _DEGREE_EPS = 1e-8  # LabelPropConfig.degree_eps; no caller changes it
 _NOT_PORTED = {
-    "solve": "batched dense LU (ROADMAP queue A, eval and LP)",
     "sharded": "point-axis-sharded CG (ROADMAP queue A, data parallelism)",
 }
 # The centred Gram |f_i|^2 - 2 f_i.f_j + |f_j|^2 cancels in f32 to an error
@@ -87,6 +92,46 @@ def _cg(matvec, rhs: torch.Tensor, maxiter: int, tol: float,
     return x
 
 
+def _normalize(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """y / sum(y) along ``dim``, a sum below 1e-30 in magnitude left as 1."""
+    denom = torch.sum(y, dim=dim, keepdim=True)
+    return y / torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
+
+
+def label_propagation(
+    lap: torch.Tensor, g: torch.Tensor, *, alpha: float = 1.0,
+    beta: float = 1.0, ridge: float = 1e-5, solver: str = "solve",
+    cg_iters: int = 50, cg_tol: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closed-form label propagation on a given Laplacian (label_prop.py:
+    44-93). lap [B, N, N] (symmetric-normalized) Laplacians, g [B, N, K]
+    probabilities -> (Y [B, N, K], Y_prob row-normalized, w [B, N]).
+
+    "solve": ``beta * solve(alpha L + beta diag(w) + ridge I, diag(w) G)``,
+    one LU per sample. "cg": the same system by CG with the matvec straight
+    off ``lap`` (A never formed), :func:`_cg`'s batch-global semantics.
+    """
+    w = entropy_confidence(g)  # [B, N]
+    rhs = w[..., None] * g  # diag(w) @ G
+    if solver == "cg":
+        diag = beta * w + ridge
+
+        def matvec(v):
+            return alpha * torch.bmm(lap, v) + diag[..., None] * v
+
+        y = beta * _cg(matvec, rhs, cg_iters, cg_tol)
+    elif solver == "solve":
+        # alpha L + beta diag(w) + ridge I, in the reference's order of
+        # additions on the diagonal, without an [N, N] identity
+        a = lap * alpha
+        a.diagonal(dim1=-2, dim2=-1).add_(beta * w).add_(ridge)
+        y = beta * torch.linalg.solve(a, rhs)
+    else:
+        raise ValueError(f"label_propagation: solver {solver!r} is not "
+                         f"'solve' or 'cg'")
+    return y, _normalize(y), w
+
+
 def label_propagation_factored(
     xyz: torch.Tensor, g: torch.Tensor, rgb: torch.Tensor, *,
     alpha: float = 1.0, beta: float = 1.0, xyz_bandwidth: float = 1e3,
@@ -107,8 +152,7 @@ def label_propagation_factored(
         return diag[..., None] * v - alpha * s[..., None] * wv
 
     y = beta * _cg(matvec, w_conf[..., None] * g, cg_iters, cg_tol)
-    denom = torch.sum(y, dim=-1, keepdim=True)
-    return y / torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
+    return _normalize(y)
 
 
 def check_gram_cancellation(feat: torch.Tensor) -> float:
@@ -177,11 +221,24 @@ def label_propagation_matfree(
     rhs = w_conf * g.transpose(1, 2)
     y = beta * _cg(matvec, rhs.contiguous(), cg_iters, cg_tol,
                    M=lambda v: v / diag)
-    denom = torch.sum(y, dim=1, keepdim=True)
-    y = y / torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
+    y = _normalize(y, dim=1)
     inv = torch.argsort(order, dim=1)
     y = y.transpose(1, 2)
     return torch.gather(y, 1, inv[..., None].expand(-1, -1, y.shape[-1]))
+
+
+def _label_propagation_solve(
+    xyz: torch.Tensor, g: torch.Tensor, rgb: torch.Tensor, *,
+    alpha: float, beta: float, xyz_bandwidth: float, rgb_bandwidth: float,
+    ridge: float, cg_iters: int, cg_tol: float,
+) -> torch.Tensor:
+    """The "solve" solver of :func:`propagate_batch` (label_prop.py:
+    400-413): Lsym of the product kernel, then the batched LU."""
+    lap = laplacian_xyz_rgb(xyz, rgb, sym=True, xyz_bandwidth=xyz_bandwidth,
+                            rgb_bandwidth=rgb_bandwidth)
+    return label_propagation(lap, g, alpha=alpha, beta=beta, ridge=ridge,
+                             solver="solve", cg_iters=cg_iters,
+                             cg_tol=cg_tol)[1]
 
 
 def propagate_batch(
@@ -192,11 +249,14 @@ def propagate_batch(
 ) -> torch.Tensor:
     """Affinity build + LP solve. Returns Y_prob [B, N, K].
 
-    Solvers: "cg" (dense affinity, factored CG) and "cg_matfree" (no
-    [N, N] array; the room-level mode). ShapeNet passes rgb=None: the
-    reference feeds xyz twice (ShapeNet_DGCNN_trainer.py:551).
+    Solvers: "cg" (dense affinity, factored CG), "solve" (the symmetric
+    Laplacian and a batched dense LU, the closest to the reference's
+    explicit inverse) and "cg_matfree" (no [N, N] array; the room-level
+    mode). ShapeNet passes rgb=None: the reference feeds xyz twice
+    (ShapeNet_DGCNN_trainer.py:551).
     """
     solvers = {"cg": label_propagation_factored,
+               "solve": _label_propagation_solve,
                "cg_matfree": label_propagation_matfree}
     if solver not in solvers:
         what = _NOT_PORTED.get(solver, "an unknown solver")

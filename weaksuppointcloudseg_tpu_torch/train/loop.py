@@ -85,6 +85,14 @@ class _TrainerBase:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device; to the card through pinned memory without
+        blocking the host (the copy is ordered on the current stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _run_train_epoch(self, batches, epoch: int) -> Dict[str, float]:
         """The steps of one epoch over ``batches`` (the gate and the pair
         augmentation on from the rampup epoch); returns the metrics averaged
@@ -232,6 +240,14 @@ class ShapeNetTrainer(_TrainerBase):
         first view (LP's CG norms span the whole batch, so the padding
         matches the reference's); the first estimate of each point wins,
         and IoU/accuracy score every original point.
+
+        One-batch lag (reference loop.py:310-360): batch i's probabilities
+        are copied to pinned host memory without blocking, behind an event,
+        and scattered back on the host while the card runs batch i+1's
+        forward. The drain comes after that forward is launched and before
+        its LP, whose CG syncs the host once per iteration. The inputs go
+        up without blocking too. The order of the scatter-backs, and so
+        every result, is the synchronous loop's.
         """
         if use_label_prop is None:
             use_label_prop = self.style == "Full"
@@ -255,6 +271,25 @@ class ShapeNetTrainer(_TrainerBase):
             accs.append(float(np.mean(pred == seg)))
             pershape[cat] = (pershape[cat] * shape_cnt[cat] + iou) / (shape_cnt[cat] + 1)
             shape_cnt[cat] += 1
+
+        pending = []  # the lagged batch: (views, valid, host prob, event)
+
+        def fetch(prob):
+            """(host prob, event its copy completes at): on the card a
+            non-blocking copy into pinned memory; on the CPU prob itself."""
+            if prob.device.type != "cuda":
+                return prob, None
+            host = torch.empty(prob.shape, dtype=prob.dtype, pin_memory=True)
+            host.copy_(prob, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            return host, ready
+
+        def drain():
+            views, valid, prob, ready = pending.pop()
+            if ready is not None:
+                ready.synchronize()
+            scatter_back(views, valid, prob.numpy())
 
         def scatter_back(views, valid, prob):
             for v_i in range(valid):
@@ -280,11 +315,13 @@ class ShapeNetTrainer(_TrainerBase):
                 while len(xs) < batch_size:  # pad the last batch
                     xs.append(xs[0])
                     cats.append(cats[0])
-                x = torch.from_numpy(np.stack(xs).astype(np.float32)).to(self.device)
-                cat_onehot = torch.from_numpy(onehot_encode(
-                    np.asarray(cats), self.num_categories)).to(self.device)
+                x = self._upload(np.stack(xs).astype(np.float32))
+                cat_onehot = self._upload(onehot_encode(
+                    np.asarray(cats), self.num_categories))
                 with torch.inference_mode():
                     prob = torch.softmax(logits_fn(x, cat_onehot), dim=-1)
+                    if pending:  # overlaps this batch's forward
+                        drain()
                     if use_label_prop:
                         prob = propagate_batch(
                             x, prob, alpha=lp.alpha, beta=lp.beta,
@@ -292,7 +329,7 @@ class ShapeNetTrainer(_TrainerBase):
                             rgb_bandwidth=lp.rgb_bandwidth, ridge=lp.ridge,
                             solver=lp.solver, cg_iters=lp.cg_iters,
                             cg_tol=lp.cg_tol)
-                scatter_back(views, valid, prob.cpu().numpy())
+                    pending.append((views, valid, *fetch(prob)))
 
         for i in range(len(testset)):
             pts, seg, cat = testset[i]
@@ -306,6 +343,8 @@ class ShapeNetTrainer(_TrainerBase):
             queue.extend((i, sel) for sel in sels)
             flush()
         flush(force=True)
+        if pending:
+            drain()
         seen = shape_cnt > 0
         return {
             "perdata_miou": float(np.mean(per_data_iou)),

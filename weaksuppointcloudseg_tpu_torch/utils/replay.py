@@ -19,6 +19,12 @@ Through a whole step, one-ulp differences still pass through the
 batch-moment BNs of the later layers and grow; :func:`record_blocks` and
 :func:`block_errors` compare each fused block on its own instead, at the
 inputs and output cotangent it had in a recorded step.
+
+The plain composition (``forward_plain``: the unfused routes) has its own
+pair, :func:`record_plain` and :func:`replay_plain`: they record and
+replay the plain kNN graphs (``neighbors.knn_graph``) and the batch
+moments of every batch-norm layer (``layers.batch_moments``). In bf16 the
+distances have exact ties, which the two devices may order differently.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import inspect
 import torch
 
 from weaksuppointcloudseg_tpu_torch.models import layers
-from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn
+from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn, neighbors
 
 # the kernels of the fused training blocks that emit BN moments, with the
 # position of the moments in their outputs (knn_edge_pre: a static-graph
@@ -95,6 +101,67 @@ def replay(tape):
         return replayed
 
     with _patched(wrap):
+        yield
+    if next(calls, None) is not None:
+        raise RuntimeError("replay: the run made fewer calls than were recorded")
+
+
+@contextlib.contextmanager
+def _patched_plain(knn_graph, batch_moments):
+    saved = neighbors.knn_graph, layers.batch_moments
+    neighbors.knn_graph, layers.batch_moments = knn_graph, batch_moments
+    try:
+        yield
+    finally:
+        neighbors.knn_graph, layers.batch_moments = saved
+
+
+@contextlib.contextmanager
+def record_plain():
+    """Yield a list that collects, on the CPU, ("knn_graph", indices) for
+    every plain kNN graph and ("moments", (mean, var)) for every
+    batch-moment BN of the plain composition."""
+    tape = []
+    knn_graph, batch_moments = neighbors.knn_graph, layers.batch_moments
+
+    def graph(x, k):
+        idx = knn_graph(x, k)
+        tape.append(("knn_graph", idx.cpu()))
+        return idx
+
+    def moments(y32):
+        out = batch_moments(y32)
+        tape.append(("moments", tuple(t.detach().cpu() for t in out)))
+        return out
+
+    with _patched_plain(graph, moments):
+        yield tape
+
+
+@contextlib.contextmanager
+def replay_plain(tape):
+    """Run the plain composition with the recorded kNN graphs and batch
+    moments. A replayed moment takes the recorded value and keeps the
+    gradient of the one computed here (``m + (recorded - m).detach()``)."""
+    calls = iter(tape)
+    batch_moments = layers.batch_moments
+
+    def expect(name):
+        recorded, value = next(calls)
+        if recorded != name:
+            raise RuntimeError(f"replay: {name} called where {recorded} ran")
+        return value
+
+    def graph(x, k):
+        return expect("knn_graph").to(x.device)
+
+    def moments(y32):
+        got = batch_moments(y32)
+        want = expect("moments")
+        return tuple(m + (w.to(m.device) - m).detach()
+                     for m, w in zip(got, want))
+
+    with _patched_plain(graph, moments):
         yield
     if next(calls, None) is not None:
         raise RuntimeError("replay: the run made fewer calls than were recorded")
