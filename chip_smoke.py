@@ -78,7 +78,23 @@ Phases:
      an f64 solve; both test CLIs with ``--LPSolver solve`` (the ShapeNet
      loop's ms per batch and idle share with its one-batch lag).
 
-Phase 2 also holds B14 (the bf16 row gather) to its plain version
+ 12. the DGCNN classifier at its published ModelNet40 width (32 clouds x
+     1024 points, k=20, edges 64/64/64/128, global 1024, fc 512/256, 40
+     classes, keep 0.5, label smoothing 0.2) on learnable synthetic
+     clouds: 20 Adam steps on a fixed batch in the bf16 fused (knn_fast),
+     bf16 fused static and f32 exact routes with their launch counts,
+     falling loss, ms per step, clouds/s, peak memory, device time by
+     kernel and idle share; the bf16 eval forward and one bf16 unfused
+     step with their launch counts; one bf16 fused step against the CPU
+     replaying the card's graphs and moments (8 clouds); B15 where the reference
+     routes it (``neighbors.edge_feature_auto``, bf16, ``use_fused``, with
+     its B13 backward); one bf16 fused ShapeNet step and eval forward at
+     bench.py's shape with a three-conv first EdgeConv stage (B1 in that
+     stage, B13 in its backward).
+
+Phase 2 also holds B15 (kNN + row gather) to its plain version and to
+B1's graph at the f32 training batch's shape, with B15's and B16's VJPs,
+B14 (the bf16 row gather) to its plain version
 bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
 skipped, and B11 (the first conv on a given graph) to B1's output at
@@ -579,6 +595,124 @@ def check_gather_rows(gen, report):
         "gather_rows (B14)", "weaksuppointcloudseg_tpu_torch/ops/csrc/gather_rows.cu",
         "weaksuppointcloudseg_tpu/ops/gather_pallas.py:64", 0.0, ms, plain_ms,
         bnd, library_ms=lib_ms))
+
+
+def check_knn_gather(gen, report):
+    """B15 (kNN + neighbour-row gather) against its plain version at the
+    f32 training batch's shape (B=64, N=2048, k=20) with Cg=Cf=64 and
+    Cg=Cf=3, bf16, exact and fast, with and without the distances.
+
+    Tolerances: indices by agreement rate (>= 99.9% exact, >= 98% fast,
+    as B12: another summation order than cuBLAS's); the rows bitwise and
+    the distances against the plain formula (1e-5 of the distance scale;
+    fast: the dropped idx_bits) at the kernel's own indices; the indices
+    and distances bitwise B1's on the same g (the same distance pass and
+    selection). The library yardstick: cdist + topk + indexing, three
+    calls with no tie order."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, gather, knn
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+
+    max_err, times = 0.0, {}
+    for c in (64, 3):
+        g = bf16_randn(gen, (TB, TN, c))
+        f = bf16_randn(gen, (TB, TN, c))
+        for fast in (False, True):
+            idx, nbr, sqd = kg.knn_gather_with_sqdist(g, f, K, fast=fast)
+            i2, n2 = kg.knn_gather(g, f, K, fast=fast)
+            b1 = edgeconv.knn_edge(g, f, f, K, fast=fast, with_values=True)
+            want = kg.knn_gather_ref(g, f, K, fast=fast)[0]
+            torch.cuda.synchronize()
+            agree = (idx == want).float().mean().item()
+            require(agree >= (0.98 if fast else 0.999),
+                    f"knn_gather C={c} fast={fast}: index agreement {agree}")
+            require(torch.equal(i2, idx) and torch.equal(n2, nbr),
+                    f"knn_gather C={c} fast={fast}: with_values changes the "
+                    "outputs")
+            require(torch.equal(idx, b1[0]) and torch.equal(sqd, b1[-1]),
+                    f"knn_gather C={c} fast={fast}: not B1's graph")
+            require(torch.equal(nbr.view(torch.int16), gather.gather_rows_ref(
+                f, idx).view(torch.int16)), f"knn_gather C={c}: rows differ")
+            d = knn.distances(g)
+            d_sel = torch.gather(d, 2, idx.long())
+            if fast:
+                d_sel = d_sel.clamp_min(0.0)
+            scale = d.abs().amax().item()
+            err = (sqd - d_sel).abs().max().item()
+            tol = scale * (2.0 ** (knn.idx_bits(TN) - 23) if fast else 1e-5)
+            require(err <= tol, f"knn_gather C={c} fast={fast}: sqd {err}")
+            del d, d_sel, want, b1
+            max_err = max(max_err, err)
+            ms = timed_ms(lambda: kg.knn_gather(g, f, K, fast=fast))
+            ms_v = timed_ms(lambda: kg.knn_gather_with_sqdist(g, f, K,
+                                                              fast=fast))
+            plain_ms = timed_ms(lambda: kg.knn_gather_ref(g, f, K, fast=fast),
+                                reps=3)
+            g32 = g.float()
+            bi = torch.arange(TB, device="cuda")[:, None, None]
+            lib_ms = timed_ms(lambda: f[bi, torch.topk(
+                torch.cdist(g32, g32), K, dim=-1, largest=False).indices])
+            del g32
+            bnd = bound(2.0 * gram_pairs(TB, TN) * c, "bf16",
+                        nbytes(g, f, idx, nbr))
+            times[(c, fast)] = (ms, plain_ms, bnd, lib_ms)
+            print(f"  knn_gather (B15) B={TB} N={TN} Cg=Cf={c} k={K} "
+                  f"fast={fast}: index agreement {agree:.6f}, B1's graph, rows "
+                  f"bitwise, sqd abs err {err:.2e}; kernel {ms:.3f} ms (with "
+                  f"sqd {ms_v:.3f}), plain {plain_ms:.3f} ms, cdist+topk+"
+                  f"indexing {lib_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    ms, plain_ms, bnd, lib_ms = times[(64, False)]
+    report.append(kernel_row(
+        "knn_gather (B15)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn_gather.cu",
+        "weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py:286", max_err, ms,
+        plain_ms, bnd, library_ms=lib_ms))
+    torch.cuda.empty_cache()
+
+
+def check_vjps(gen):
+    """B15's VJP (df: B13's scatter of the rows' cotangent) and B16's
+    (knn_edge_gather: B1 forward; dy_eff, du and dv through B13) on the
+    card against their plain versions on the CPU at the kernel's own
+    indices, at the three-conv stage's shape (Cg=3, C=64, k=20) for 8
+    clouds of 2048 points. Tolerances: df within 1e-5 of the scattered
+    magnitudes plus one bf16 ulp of the rounded sum (f32 atomics); y1
+    bitwise; du within one bf16 ulp; dv within one ulp plus 1e-4 (as
+    tests/test_torch_cuda.py)."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, scatter
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+
+    b, c = 8, 64
+    g = bf16_randn(gen, (b, TN, 3))
+    f = bf16_randn(gen, (b, TN, c)).requires_grad_()
+    ct = bf16_randn(gen, (b, TN, K, c))
+    idx, nbr = kg.knn_gather(g, f, K)
+    nbr.backward(ct)
+    want = scatter.scatter_add_ref(idx.cpu(), ct.float().cpu(), TN)
+    mags = scatter.scatter_add_ref(idx.cpu(), ct.float().abs().cpu(), TN)
+    df_err = ((f.grad.float().cpu() - want).abs()
+              / (1e-5 * mags + 2.0 ** -8 * want.abs() + 1e-6)).max().item()
+    require(df_err <= 1.0, f"B15's VJP: df {df_err:.3f} of its tolerance")
+    v, u = bf16_randn(gen, (b, TN, c)), bf16_randn(gen, (b, TN, c))
+    dmom = torch.randn((2, c), generator=gen, device="cuda") * 0.1
+    vv, uu = v.clone().requires_grad_(), u.clone().requires_grad_()
+    idx, y, mom = edgeconv.knn_edge_gather(g, vv, uu, K, fast=True)
+    torch.autograd.backward((y, mom), (ct, dmom))
+    vp, up = v.cpu().requires_grad_(), u.cpu().requires_grad_()
+    yp, mp = edgeconv.knn_edge_gather_pre(idx.cpu(), vp, up, K)
+    torch.autograd.backward((yp, mp), (ct.cpu(), dmom.cpu()))
+    du_c, du_p = uu.grad.float().cpu(), up.grad.float()
+    dv_c, dv_p = vv.grad.float().cpu(), vp.grad.float()
+    du_err = ((du_c - du_p).abs() / (2.0 ** -7 * du_p.abs() + 1e-6)).max().item()
+    dv_err = ((dv_c - dv_p).abs() / (2.0 ** -7 * dv_p.abs() + 1e-4)).max().item()
+    require(torch.equal(y.cpu(), yp) and du_err <= 1.0 and dv_err <= 1.0,
+            f"B16's VJP: du {du_err:.3f}, dv {dv_err:.3f} of the tolerance")
+    print(f"  VJPs, {b} x {TN} points, Cg=3, C={c}, k={K}: B15's df "
+          f"{df_err:.3f} of its tolerance; B16's (knn_edge_gather, fast) y1 "
+          f"bitwise, du {du_err:.3f} and dv {dv_err:.3f} of theirs")
 
 
 PB, PN = 32, 2048  # the Plain-style bf16 training batch (bench.py:443-452)
@@ -1159,6 +1293,8 @@ def phase_kernels(report):
     check_knn(gen, report)
     check_scatter_add(gen, report)
     check_gather_rows(gen, report)
+    check_knn_gather(gen, report)
+    check_vjps(gen)
     check_conv_minmax(gen, report)
     check_conv_kmax_bwd(gen, report)
     check_scatter_bn_bwd(gen, report)
@@ -2808,6 +2944,335 @@ def phase_unfused(report) -> None:
     print(f"  B14 launches on this phase's counted runs: {b14}")
 
 
+# --------------------------------------------------------------- phase 12
+
+CB, CN, C_CLASSES = 32, 1024, 40  # the classifier's ModelNet40 batch
+
+
+def class_clouds(labels, n, seed):
+    """Learnable synthetic clouds: class c's points lie on an ellipsoid
+    with axes from a fixed table (0.3-1.0 m), a fresh sample per cloud,
+    plus 1 cm noise. numpy f32 [len(labels), n, 3]."""
+    axes = np.random.default_rng(99).uniform(0.3, 1.0, (C_CLASSES, 3))
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((len(labels), n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = d * axes[labels][:, None, :] + 0.01 * rng.standard_normal(d.shape)
+    return pts.astype(np.float32)
+
+
+def cls_kernels():
+    """Every kernel a classifier route can launch, and B15 (which none
+    may)."""
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, gather, knn
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+    from weaksuppointcloudseg_tpu_torch.ops import scatter
+
+    return {**fused_train_kernels(),
+            "knn_edge_pre (B11)": edgeconv.knn_edge_pre,
+            "knn (B12)": knn.knn, "scatter_add (B13)": scatter.scatter_add,
+            "gather_rows (B14)": gather.gather_rows,
+            "knn_gather (B15)": kg.knn_gather}
+
+
+# the launches of one classifier training step per route, and of the bf16
+# fused eval forward: transform stage, four single-conv stages, aggregation
+_CLS_FUSED = {"knn_edge (B1)": 5, "conv_minmax (B2)": 1, "conv_nmax (B5)": 2,
+              "conv_kmax_bwd (B3)": 1, "scatter_bn_bwd (B4)": 5,
+              "conv_nmax_bwd (B5)": 2}
+CLS_ROUTES = (
+    ("bf16 fused, knn_fast", "bfloat16", dict(knn_fast=True), _CLS_FUSED),
+    ("bf16 fused static, knn_fast", "bfloat16",
+     dict(knn_fast=True, static_graph=True),
+     {**_CLS_FUSED, "knn_edge (B1)": 1, "knn_edge_pre (B11)": 4}),
+    ("f32 exact", "float32", {}, {"knn (B12)": 5, "scatter_add (B13)": 4}),
+)
+
+
+def cls_step_fn(model, x, labels, opt, gen):
+    """One classifier training step: forward (dropout from ``gen``),
+    label-smoothed loss, backward, Adam at 1e-3. Returns the loss."""
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn_cls import (
+        classification_loss,
+    )
+
+    def step():
+        opt.zero_grad()
+        logits = model(x, training=True, bn_decay=0.5, generator=gen)
+        loss = classification_loss(logits, labels, model.cfg.label_smoothing)
+        loss.backward()
+        opt.apply_gradients(1e-3)
+        return loss.detach()
+    return step
+
+
+def cls_step_vs_cpu(cfg, x, labels, seed):
+    """One bf16 fused classifier training step (dropout off) on the card
+    and over the plain versions on the CPU, the CPU replaying the card's
+    kNN indices, in-kernel moments and batch moments (utils/replay.py);
+    each fused block is also rerun alone on both devices. Returns (loss rel
+    err, logits rel RMS, {leaf: error}, null-gradient leaves, [(block,
+    {name: error})])."""
+    import contextlib
+
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn_cls import (
+        DGCNNCls,
+        classification_loss,
+    )
+    from weaksuppointcloudseg_tpu_torch.utils import replay
+
+    outs, tapes, blocks = [], None, None
+    for dev in ("cuda", "cpu"):
+        model = DGCNNCls(cfg, seed=seed).to(dev)
+        ctx = ((replay.record(), replay.record_plain(), replay.record_blocks())
+               if dev == "cuda" else
+               (replay.replay(tapes[0]), replay.replay_plain(tapes[1]),
+                contextlib.nullcontext()))
+        with ctx[0] as t0, ctx[1] as t1, ctx[2] as bl:
+            logits = model.forward_fused(x.to(dev), training=True, bn_decay=0.5)
+        tapes, blocks = tapes or (t0, t1), blocks or bl
+        loss = classification_loss(logits, labels.to(dev))
+        loss.backward()
+        outs.append((float(loss.detach()), logits.detach().float().cpu(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (got_l, got_lg, got_g), (want_l, want_lg, want_g) = outs
+    errs, null = replay.grad_errors(model, got_g, want_g)
+    block_errs = [(e["block"].__name__.strip("_"), replay.block_errors(e))
+                  for e in blocks]
+    return (abs(got_l - want_l) / abs(want_l),
+            ((got_lg - want_lg).norm() / want_lg.norm()).item(), errs, null,
+            block_errs)
+
+
+def b15_route(report, kernels, card):
+    """B15 where the reference routes it: neighbors.edge_feature_auto with
+    bf16 features and use_fused, forward and backward, at the ShapeNet
+    stage shape (32 x 2048, C=64, k=20): B15 once, B13 once in the
+    backward, no other selection; the edge features equal
+    neighbors.edge_feature on B15's graph."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+    from weaksuppointcloudseg_tpu_torch.ops import neighbors
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    g = bf16_randn(gen, (PB, PN, 64))
+    f = bf16_randn(gen, (PB, PN, 64)).requires_grad_()
+
+    def run():
+        ef = neighbors.edge_feature_auto(g, f, K, use_fused=True, fast=True)
+        ef.float().square().sum().backward()
+        return ef.detach()
+
+    ef, launches = count_launches(kernels, run)
+    want = {"knn_gather (B15)": 1, "scatter_add (B13)": 1}
+    check_launch_counts(launches, {n: want.get(n, 0) for n in launches},
+                        "edge_feature_auto (bf16, use_fused)")
+    idx = kg.knn_gather(g, f.detach(), K, fast=True)[0]
+    require(torch.equal(ef, neighbors.edge_feature(f.detach(), idx)),
+            "edge_feature_auto: not the edge features of B15's graph")
+    require(bool(torch.isfinite(f.grad).all()), "edge_feature_auto: df")
+    for row in report:
+        if row["name"] == "knn_gather (B15)":
+            row["launches"] = launches["knn_gather (B15)"]
+    print(f"  neighbors.edge_feature_auto (bf16, use_fused, knn_fast) at "
+          f"{PB} x {PN}, C=64: launches " + ", ".join(
+              f"{n} {v}" for n, v in launches.items() if v)
+          + f"; the edge features of B15's graph [{card}]")
+
+
+def three_conv_shapenet(kernels, card):
+    """One bf16 fused Plain-style ShapeNet step and one eval forward at
+    bench.py's shape (32 x 2048, k=20, knn_fast) with the first EdgeConv
+    stage widened to three convs (64, 64, 64): B1 selects in that stage
+    (train and eval), B13 runs its backward once."""
+    import dataclasses
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.losses.weaksup import masked_softmax_ce
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
+
+    base = configs.shapenet_config().model
+    cfg = dataclasses.replace(base, compute_dtype="bfloat16", knn_fast=True,
+                              edge_channels=((64, 64, 64), (64, 64), (64,)))
+    model = DGCNNSeg(cfg, seed=0).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randn((PB, PN, 3), generator=gen, device="cuda") * 0.4
+    cat = torch.eye(16, device="cuda")[torch.arange(PB, device="cuda") % 16]
+    seg = torch.randint(0, 50, (PB, PN), generator=gen, device="cuda")
+    onehot = torch.nn.functional.one_hot(seg, 50).float()
+    mask = (torch.rand((PB, PN), generator=gen, device="cuda") < 0.1).float()
+
+    def step():
+        model.zero_grad()
+        logits = model(x, cat, training=True, bn_decay=0.5, generator=gen)
+        loss = masked_softmax_ce(logits, onehot, mask)
+        loss.backward()
+        return loss.detach()
+
+    loss, launches = count_launches(kernels, step)
+    torch.cuda.synchronize()
+    grads_ok = all(bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    require(bool(torch.isfinite(loss)) and grads_ok,
+            "three-conv ShapeNet step: a loss or gradient is not finite")
+    want = {"knn_edge (B1)": 4, "scatter_add (B13)": 1, "conv_minmax (B2)": 2,
+            "conv_kmax_bwd (B3)": 2, "scatter_bn_bwd (B4)": 3,
+            "conv_nmax (B5)": 2, "conv_nmax_bwd (B5)": 2}
+    check_launch_counts(launches, {n: want.get(n, 0) for n in launches},
+                        "three-conv ShapeNet step")
+    ms = timed_ms(step, reps=3, warmup=1)
+    with torch.no_grad():
+        logits, eval_launches = count_launches(kernels, lambda: model(x, cat))
+    want = {"knn_edge (B1)": 4, "conv_zmax (B7)": 2, "conv_znmax (B8)": 2}
+    check_launch_counts(eval_launches,
+                        {n: want.get(n, 0) for n in eval_launches},
+                        "three-conv ShapeNet eval forward")
+    require(bool(torch.isfinite(logits).all()), "three-conv eval: logits")
+    eval_ms = timed_ms(lambda: model(x, cat), reps=3, warmup=1)
+    print(f"  ShapeNet with a three-conv first stage (64, 64, 64), bf16 fused, "
+          f"knn_fast, {PB} x {PN}: step loss {float(loss):.4f}, {ms:.3f} ms "
+          f"per step, launches " + ", ".join(
+              f"{n} {v}" for n, v in launches.items() if v)
+          + f"; eval forward {eval_ms:.3f} ms, launches " + ", ".join(
+              f"{n} {v}" for n, v in eval_launches.items() if v)
+          + f" [{card}]")
+
+
+def phase_classifier(report) -> None:
+    """The DGCNN classifier at its published ModelNet40 width (32 clouds x
+    1024 points, k=20, edges 64/64/64/128, global 1024, fc 512/256, 40
+    classes, keep 0.5, label smoothing 0.2) on learnable synthetic clouds:
+    20 Adam steps on a fixed batch per route, the bf16 eval forward and one
+    bf16 unfused step with their launch counts; the bf16 fused step
+    against the CPU; B15 on its route; the three-conv ShapeNet stage."""
+    import dataclasses
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch import configs
+    from weaksuppointcloudseg_tpu_torch.models.dgcnn_cls import DGCNNCls
+    from weaksuppointcloudseg_tpu_torch.train.state import Adam
+
+    print(f"phase 12: the DGCNN classifier ({CB} x {CN} points, 40 classes), "
+          f"B15 on its route, a three-conv ShapeNet stage")
+    card = card_line()
+    kernels = cls_kernels()
+    labels = torch.arange(CB, device="cuda") % C_CLASSES
+    xs = torch.from_numpy(class_clouds(labels.cpu().numpy(), CN, 0)).cuda()
+    base = configs.ClsConfig()
+    for what, dtype, kw, want in CLS_ROUTES:
+        model = DGCNNCls(dataclasses.replace(base, **kw), seed=0).cuda()
+        x = xs.to(getattr(torch, dtype))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        step = cls_step_fn(model, x, labels, Adam(model.parameters()), gen)
+        torch.cuda.reset_peak_memory_stats()
+        loss0, launches = count_launches(kernels, step)
+        check_launch_counts(launches, {n: want.get(n, 0) for n in launches},
+                            f"classifier step, {what}")
+        losses, step_s = [float(loss0)], []
+        for _ in range(19):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = float(np.median(step_s[4:])) * 1e3
+        require(np.isfinite(losses).all()
+                and np.mean(losses[-3:]) < np.mean(losses[:3]),
+                f"classifier, {what}: the loss did not fall: {losses}")
+        print(f"  classifier train step, {what}: launches " + ", ".join(
+            f"{n} {v}" for n, v in launches.items() if v)
+            + f"; loss over 20 Adam steps on a fixed batch "
+            + " ".join(f"{v:.3f}" for v in losses[::3]) + f" .. "
+            f"{losses[-1]:.3f}; {ms:.3f} ms per step (median of 15), "
+            f"{CB / ms * 1e3:.1f} clouds/s, peak {peak:.2f} GiB [{card}]")
+        busy_ms, _ = device_breakdown(step, card, runs=3, top=8,
+                                      what=f"classifier step, {what}")
+        print(f"  idle share of the step: 1 - busy {busy_ms:.3f} / {ms:.3f} ms "
+              f"= {1 - busy_ms / ms:.3f}")
+        if dtype == "bfloat16" and not kw.get("static_graph"):
+            with torch.no_grad():
+                logits, ev = count_launches(kernels, lambda: model(x))
+            want_ev = {"knn_edge (B1)": 5, "conv_zmax (B7)": 1,
+                       "conv_znmax (B8)": 2}
+            check_launch_counts(ev, {n: want_ev.get(n, 0) for n in ev},
+                                "classifier eval forward")
+            require(bool(torch.isfinite(logits).all())
+                    and logits.dtype == torch.bfloat16,
+                    "classifier eval forward: logits")
+            ev_ms = timed_ms(lambda: model(x))
+            acc = (logits.argmax(-1) == labels).float().mean().item()
+            print(f"  classifier eval forward, bf16 fused: launches " + ", ".join(
+                f"{n} {v}" for n, v in ev.items() if v)
+                + f"; {ev_ms:.3f} ms per batch, {CB / ev_ms * 1e3:.1f} "
+                f"clouds/s, train-batch accuracy {acc:.3f} [{card}]")
+        del model
+    # one bf16 step without the fused kNN: B14 gathers, B13 backward
+    model = DGCNNCls(dataclasses.replace(base, use_fused_knn=False),
+                     seed=0).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    step = cls_step_fn(model, xs.bfloat16(), labels, Adam(model.parameters()),
+                       gen)
+    loss, launches = count_launches(kernels, step)
+    want = {"gather_rows (B14)": 5, "scatter_add (B13)": 4}
+    check_launch_counts(launches, {n: want.get(n, 0) for n in launches},
+                        "classifier step, bf16 unfused")
+    require(bool(torch.isfinite(loss)), "classifier unfused step: loss")
+    print(f"  classifier train step, bf16 unfused: loss {float(loss):.4f}, "
+          f"launches " + ", ".join(f"{n} {v}" for n, v in launches.items() if v))
+    del model, step
+    torch.cuda.empty_cache()
+
+    # the fused bf16 step against the CPU, dropout off, at 8 clouds: the fc
+    # layers' batch norms over a handful of clouds are near-degenerate
+    # (over 2 the gradient upstream is zero up to eps; over 4 they turned
+    # one-ulp differences into leaf errors up to 0.30 and loss errors up
+    # to 6.9e-3). Limits from two runs of scripts/torch_cls_step_agreement.py
+    # (PERF.md, section 6), at least three times the worst of nine readings
+    # at 8-32 clouds: each block on its own within 1e-2 (worst 3.7e-4); the
+    # loss within 2^-6 relative, a few bf16 ulps of the log-probabilities,
+    # which are bf16 as in the reference (1.1e-3); logits within 0.1
+    # relative RMS (1.7e-2); every leaf within 0.65 of its norm (0.215) and
+    # the null-gradient biases within 1.5e-2 of the largest leaf norm
+    # (5.8e-5). agg.beta is held at the block level only: fc1's batch norm
+    # makes its cotangent sum to zero over the clouds, so it cancels to
+    # rounding noise (0.28-1.54), as agg_conv.beta does in phase 5
+    small = dataclasses.replace(base, knn_fast=True, keep_prob=1.0)
+    loss_err, lg_err, errs, null, block_errs = cls_step_vs_cpu(
+        small, xs[:8].bfloat16(), labels[:8], seed=1)
+    leaf = sorted((e, n) for n, e in errs.items()
+                  if n not in null and n != "agg.beta")
+    null_err = max(e for n, e in errs.items() if n in null)
+    block_worst = max((e, f"{name}.{k}") for name, be in block_errs
+                      for k, e in be.items())
+    print(f"  CUDA vs CPU replaying the card's kNN and moments, one fused bf16 "
+          f"classifier step, 8 x {CN} points: each block on its own, worst "
+          f"{block_worst[1]} {block_worst[0]:.2e}; the whole step: loss rel "
+          f"err {loss_err:.2e}, logits rel RMS {lg_err:.2e}, leaf gradients "
+          f"worst: " + ", ".join(f"{n} {e:.2e}" for e, n in leaf[-3:][::-1])
+          + f"; median {leaf[len(leaf) // 2][0]:.2e}; null-gradient biases "
+          f"{null_err:.2e} of the largest leaf norm; agg.beta "
+          f"{errs['agg.beta']:.2e}")
+    require(block_worst[0] <= 1e-2,
+            f"CUDA classifier block disagrees with the CPU: {block_errs}")
+    require(loss_err <= 2.0 ** -6 and lg_err <= 0.1,
+            "CUDA classifier forward disagrees with the CPU")
+    require(leaf[-1][0] <= 0.65 and null_err <= 1.5e-2,
+            "CUDA classifier gradients disagree with the CPU")
+    b15_route(report, kernels, card)
+    three_conv_shapenet(kernels, card)
+    torch.cuda.empty_cache()
+
+
 def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
                      what: str = "e2e", ops: int = 0):
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler)
@@ -2856,7 +3321,8 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 # device kernels by the kind of work (first match wins)
 KERNEL_GROUPS = (
     ("knn_edge_pre_kernel", "B11"), ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
-    ("KnnOut", "B12"), ("WGatherOut", "B9"), ("affinity_kernel", "B10"),
+    ("KnnOut", "B12"), ("WGatherOut", "B9"), ("GatherOut", "B15"),
+    ("affinity_kernel", "B10"),
     ("gather_rows_kernel", "B14"),
     ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
     ("scatter_add_weighted", "B6 scatter"),
@@ -2889,7 +3355,7 @@ def main() -> int:
     for phase in (phase_kernels, phase_end_to_end, phase_train,
                   phase_plain_train, phase_full_train, phase_s3dis_train,
                   phase_s3dis_test, phase_static_graph, phase_convergence,
-                  phase_unfused):
+                  phase_unfused, phase_classifier):
         t0 = time.perf_counter()
         phase(report)
         print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s wall)")

@@ -5,13 +5,14 @@ counterpart at the same relative path there, and the tests in
 ``tests/test_torch_*.py`` hold the two against each other on the CPU.
 
 Ported so far: training and test of ShapeNet and S3DIS in f32 and bf16,
-through the fused EdgeConv blocks and the fused smoothness loss or, without
-the fused kNN (``use_fused_knn=False``), through the plain composition;
-static-graph mode; label propagation with the "cg", "solve" and
-"cg_matfree" solvers and the whole-room LP; the ShapeNet test loop's
-one-batch lag. Seventeen of the JAX package's eighteen Pallas kernels have
-a hand-written Hopper counterpart (``ops/csrc/*.cu``); B15 and data
-parallelism are still to port (ROADMAP.md).
+through the fused EdgeConv blocks (stages of any number of convs) and the
+fused smoothness loss or, without the fused kNN (``use_fused_knn=False``),
+through the plain composition; static-graph mode; label propagation with
+the "cg", "solve" and "cg_matfree" solvers and the whole-room LP; the
+ShapeNet test loop's one-batch lag; the DGCNN classifier on every route.
+All eighteen of the JAX package's Pallas kernels have a hand-written
+Hopper counterpart (``ops/csrc/*.cu``); data parallelism is still to port
+(ROADMAP.md).
 
 This package imports neither JAX nor the JAX package: the configs, the
 ShapeNet and S3DIS readers, the augmentation and label sampling, and the

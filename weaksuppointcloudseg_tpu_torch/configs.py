@@ -1,4 +1,5 @@
-"""Configuration of the ported paths: the ShapeNet and S3DIS presets.
+"""Configuration of the ported paths: the ShapeNet and S3DIS presets and the
+DGCNN classifier.
 
 Counterpart of weaksuppointcloudseg_tpu/configs.py: the fields keep the
 reference's names and defaults, so either package's configs drive either
@@ -60,6 +61,28 @@ class ModelConfig:
     knn_fast: bool = False
     # opt-in (not reference parity): one kNN graph on the input
     # coordinates, reused by every EdgeConv stage (models/dgcnn.py)
+    static_graph: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ClsConfig:
+    """DGCNN classifier (Networks/dgcnn/models/dgcnn.py:20-107; the
+    reference's models/dgcnn_cls.py:27-47). ``allow_known_bad_bf16`` is
+    absent: it guards against a TPU backend's bf16 miscompile."""
+
+    num_classes: int = 40
+    k: int = 20
+    edge_channels: Tuple[int, ...] = (64, 64, 64, 128)
+    global_channels: int = 1024
+    fc_channels: Tuple[int, ...] = (512, 256)
+    keep_prob: float = 0.5
+    label_smoothing: float = 0.2
+    bn_eps: float = 1e-3
+    use_fused_knn: bool = True
+    # packed-min top-k selection (see ModelConfig.knn_fast)
+    knn_fast: bool = False
+    # one input-coordinate kNN graph reused by every EdgeConv stage
+    # (see ModelConfig.static_graph: opt-in speed/accuracy trade)
     static_graph: bool = False
 
 

@@ -16,7 +16,8 @@ where the tensors live, in place of the reference's
   CUDA, bf16, use_fused_knn, eval     -> forward_fused, kernels B1/B7/B8
   CUDA, bf16, use_fused_knn, training -> forward_fused, kernels B1-B5
                                          (forward B1/B2/B5, backward
-                                         B3/B4/B5)
+                                         B3/B4/B5); a stage of three or
+                                         more convs: B1, backward B13
   CUDA, f32, use_fused_knn            -> forward_plain, kNN by kernel B12
                                          and the gather's backward by B13
   CUDA, bf16, no use_fused_knn        -> forward_plain, kNN by the plain
@@ -44,10 +45,17 @@ stages then gather along it with kernel B11 (training and eval), the
 plain stages with ``neighbors.gather_neighbors`` (B14 in bf16, backward
 B13).
 
-Not ported here: EdgeConv stages of three or more convs on the fused path
-(no preset has one). The reference's ``allow_known_bad_bf16`` guard is
-absent on purpose: the bf16 miscompile it guards against is a TPU backend
-fault.
+A fused EdgeConv stage of three or more convs (no preset has one;
+dgcnn.py:297-316) runs its first conv through
+``layers.apply_edge_conv_knn_fused`` (B1 at eval through B16's VJP, in
+training with a hand-written backward over B13), or with a static graph
+through ``neighbors.gather_neighbors`` (B14) + ``layers.apply_edge_conv``;
+its other convs are ``layers.apply_conv`` and the k-max ``torch.amax``.
+Such stages take no ``n_valid``, as the reference asserts
+(dgcnn.py:180-184).
+
+The reference's ``allow_known_bad_bf16`` guard is absent on purpose: the
+bf16 miscompile it guards against is a TPU backend fault.
 """
 
 from __future__ import annotations
@@ -59,7 +67,10 @@ from torch import nn
 
 from weaksuppointcloudseg_tpu_torch.configs import ModelConfig
 from weaksuppointcloudseg_tpu_torch.models import layers
-from weaksuppointcloudseg_tpu_torch.models.transform_net import TransformNet
+from weaksuppointcloudseg_tpu_torch.models.transform_net import (
+    TransformNet,
+    apply_transform,
+)
 from weaksuppointcloudseg_tpu_torch.ops import neighbors
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -112,7 +123,7 @@ class DGCNNSeg(nn.Module):
         plain distance + sort."""
         cfg = self.cfg
         if cfg.use_fused_knn:
-            return neighbors.knn_graph_fused(g.float(), cfg.k, fast=cfg.knn_fast)
+            return neighbors.knn_graph_fused(g, cfg.k, fast=cfg.knn_fast)
         return neighbors.knn_graph(g, cfg.k)
 
     def _convs(self, widths, conv_i):
@@ -179,7 +190,7 @@ class DGCNNSeg(nn.Module):
             # graph on the raw coordinates, features in the compute dtype
             transform = self.transform_net.forward_plain(
                 g, gc, cfg.k, idx=static_idx, **nkw, **kw)
-            x = self._apply_transform(x, transform)
+            x = apply_transform(x, transform)
         feat = x.to(dt)
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
         if cfg.static_graph and static_idx is None:
@@ -222,6 +233,8 @@ class DGCNNSeg(nn.Module):
         cfg, dt, eps = self.cfg, self.compute_dtype, self.cfg.bn_eps
         if training and n_valid is not None:
             raise ValueError("n_valid is an eval-only option")
+        if n_valid is not None and any(len(w) > 2 for w in cfg.edge_channels):
+            raise ValueError("n_valid needs EdgeConv stages of 1 or 2 convs")
         if want_smooth_graph and not (training and cfg.use_transform_net):
             raise ValueError("want_smooth_graph reuses the transform stage's "
                              "graph: training with a transform net only")
@@ -238,7 +251,7 @@ class DGCNNSeg(nn.Module):
                 transform, tgraph = transform
                 graph = tgraph if want_smooth_graph else None
                 static_idx = tgraph[0] if cfg.static_graph else None
-            x = self._apply_transform(x, transform)
+            x = apply_transform(x, transform)
         feat = x.to(dt).contiguous()
         graph_feat = feat if cfg.use_transform_net else self._knn_input(x).to(dt)
         if (cfg.static_graph and static_idx is None
@@ -266,8 +279,16 @@ class DGCNNSeg(nn.Module):
                 out = layers.apply_edge_conv_stage1_fused(
                     convs[0], f_in, src, cfg.k, **skw)
             else:
-                raise NotImplementedError(
-                    "fused EdgeConv stages of 3+ convs (B16) are not ported")
+                if static_idx is None:
+                    h = layers.apply_edge_conv_knn_fused(
+                        convs[0], f_in, src, cfg.k, fast=cfg.knn_fast, **kw)
+                else:
+                    h = layers.apply_edge_conv(
+                        convs[0], f_in,
+                        neighbors.gather_neighbors(f_in, static_idx), **kw)
+                for p in convs[1:]:
+                    h = layers.apply_conv(p, h, **kw)
+                out = torch.amax(h, dim=2)
             outs.append(out)
             conv_i += len(widths)
         concat = torch.cat(outs, dim=-1)
@@ -276,11 +297,6 @@ class DGCNNSeg(nn.Module):
         logits = self._head(global_feat, concat, cat_onehot,
                             generator=generator, **kw)
         return (logits, graph) if want_smooth_graph else logits
-
-    @staticmethod
-    def _apply_transform(x, transform):
-        """x @ transform in f32, then back to x's dtype (dgcnn.py:233-236)."""
-        return torch.matmul(x.float(), transform.to(x.dtype).float()).to(x.dtype)
 
     def _head(self, global_feat, concat, cat_onehot, *, eps: float,
               training: bool = False, decay=None,

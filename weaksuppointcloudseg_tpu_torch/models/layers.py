@@ -17,7 +17,11 @@ EdgeConv conv as an ``autograd.Function`` with the reference's factored
 backward, and dropout. The fused blocks (bf16) evaluate over kernels B1,
 B7, B8 and train as ``autograd.Function``s over B1-B5 (the reference's
 ``custom_vjp``s ``_edge_conv_stage_train``, ``_edge_conv_stage1_train`` and
-``_conv_bn_nmax_train``). With ``reuse_idx`` (static-graph mode) an
+``_conv_bn_nmax_train``). The first conv of a stage of three or more
+convs evaluates over B1 and trains as :class:`_EdgeConvBnReluTrain` (the
+reference's ``_edge_conv_bn_relu_train``: B1, backward B13). With
+``reuse_idx``
+(static-graph mode) an
 EdgeConv stage takes its neighbours from a given graph through kernel B11
 instead of selecting them with B1; everything downstream, the backward
 included, is the selecting stage's (the reference's
@@ -45,7 +49,7 @@ from weaksuppointcloudseg_tpu_torch.ops.conv_kmax import (
     conv_znmax,
 )
 from weaksuppointcloudseg_tpu_torch.ops.edgeconv import knn_edge, knn_edge_pre
-from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_bn_bwd
+from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add, scatter_bn_bwd
 
 BN_EPS = 1e-3
 
@@ -408,6 +412,67 @@ class _ConvBnNmaxTrain(torch.autograd.Function):
         dh, dw, db = conv_nmax_bwd(h, q.contiguous(), asel.contiguous(),
                                    w.to(h.dtype), b, alpha, beta_v)
         return dh, dw, db, a2, a1, None
+
+
+class _EdgeConvBnReluTrain(torch.autograd.Function):
+    """The first conv of a fused EdgeConv stage of three or more convs in
+    training, + BN + ReLU (layers.py:260-352): B1 emits y1 and BN's
+    moments. Backward by hand: the standard BN backward from the saved y1
+    (dz = dh 1[h > 0]; dy = inv gamma (dz - mean(dz) - xhat mean(dz
+    xhat)), rounded to y1's dtype), then the factored conv's ``du = sum_k
+    dy`` and ``dv = scatter(idx, dy)`` (kernel B13) into
+    :func:`_uv_grads`. Gradients as the reference returns them: dgamma =
+    a2, dbeta = a1; ``g_src`` gets none. Outputs (h [B,N,k,C], mean, var);
+    the moments feed the BN buffer update only."""
+
+    @staticmethod
+    def forward(ctx, f, w, b, gamma, beta, g_src, k, eps, fast):
+        u, v = uv_factor(w, b, f)
+        idx, y, mom = knn_edge(g_src.detach().contiguous(), v, u, k,
+                               fast=fast)
+        r = y.shape[0] * y.shape[1] * y.shape[2]
+        mean, var, _, _, inv = _stage_consts(mom, r, gamma, beta, eps)
+        z = (y.float() - mean) * (inv * gamma) + beta
+        h = torch.relu(z).to(y.dtype)
+        ctx.save_for_backward(idx, y, h, mean, inv, w, gamma, f)
+        ctx.mark_non_differentiable(mean, var)
+        return h, mean, var
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        idx, y, h, mean, inv, w, gamma, f = ctx.saved_tensors
+        r = y.shape[0] * y.shape[1] * y.shape[2]
+        xhat = (y.float() - mean) * inv
+        dz = dh.float() * (h > 0)
+        a1 = dz.sum(dim=(0, 1, 2))
+        a2 = (dz * xhat).sum(dim=(0, 1, 2))
+        dy = ((inv * gamma) * (dz - a1 / r - xhat * (a2 / r))).to(y.dtype)
+        du = dy.float().sum(dim=2)
+        dv = scatter_add(idx, dy.float().contiguous(), f.shape[1])
+        df, dw, db = _uv_grads(w, f, du, dv)
+        return (df if ctx.needs_input_grad[0] else None, dw, db, a2, a1,
+                None, None, None, None)
+
+
+def apply_edge_conv_knn_fused(p: Conv, f: torch.Tensor, g_src: torch.Tensor,
+                              k: int, *, eps: float = BN_EPS,
+                              fast: bool = False, training: bool = False,
+                              decay=None) -> torch.Tensor:
+    """The first conv of a fused EdgeConv stage of three or more convs:
+    kNN on ``g_src`` + conv(concat([f_i, f_j - f_i])) + BN + ReLU, the
+    conv factored as ``u_i + v_j`` inside kernel B1 (layers.py:355-397).
+    Eval: B1's y1 (the forward of the reference's B16, ``knn_edge_gather``),
+    then population BN + ReLU. Training: :class:`_EdgeConvBnReluTrain`, BN's population
+    stats updated in place. f, g_src: bf16 -> h [B, N, k, C] bf16."""
+    if training:
+        h, mean, var = _EdgeConvBnReluTrain.apply(
+            f, p.w, p.b, p.gamma, p.beta, g_src, k, eps, fast)
+        _update_bn(p, mean, var, decay)
+        return h
+    u, v = uv_factor(p.w, p.b, f)
+    y = knn_edge(g_src.contiguous(), v, u, k, fast=fast)[1]
+    inv = torch.rsqrt(p.var + eps) * p.gamma
+    return torch.relu((y.float() - p.mean) * inv + p.beta).to(y.dtype)
 
 
 def apply_edge_conv_stage_fused(p1: Conv, p2: Conv, f: torch.Tensor,

@@ -17,6 +17,12 @@ from weaksuppointcloudseg_tpu_torch.models import layers
 from weaksuppointcloudseg_tpu_torch.ops import neighbors
 
 
+def apply_transform(x: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
+    """x [B, N, K] @ transform [B, K, K] in f32, then back to x's dtype
+    (dgcnn.py:233-236, dgcnn_cls.py:138-139)."""
+    return torch.matmul(x.float(), transform.to(x.dtype).float()).to(x.dtype)
+
+
 class TransformNet(nn.Module):
     """Parameters named as init_transform_net's pytree."""
 

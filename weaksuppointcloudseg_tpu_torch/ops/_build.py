@@ -49,6 +49,7 @@ SIGNATURES = {
     "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
     "affinity_matvec_launch": [P, P, P, I, I, I, I, I, P, P],
     "gather_rows_launch": [P, P, I, I, I, I, I, P, P],
+    "knn_gather_launch": [P, P] + [I] * 7 + [P] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,12 +9,18 @@ _knn_edge_impl. The first conv of an EdgeConv stage factors as
 _uv_factor), so the kernel only adds ``u`` to each selected neighbor's
 ``v``: the edge tensor and the distance matrix never reach memory.
 
+``KnnEdgeGather`` (``knn_edge_gather``) is B1's VJP, the reference's
+B16 (``knn_edge_gather``, edgeconv_pallas.py:643-711), whose scatter is
+kernel B13. The fused stages fold this backward into their own
+(models/layers.py), so only tests reach it, as in the reference, where
+the stages of three or more convs call it at eval only.
+
 B11 (``knn_edge_pre``, counterpart of ``_knn_edge_pre_impl``) is B1's
 epilogue with the neighbours read from a given ``idx`` instead of
 selected: the static-graph mode's reusing stages. Given B1's own indices
 it returns B1's y1 and extrema bit for bit. ``KnnEdgeGatherPre`` is its
 VJP (``knn_edge_gather_pre``, edgeconv_pallas.py:892-943), whose scatter
-is kernel B13.
+is kernel B13 too.
 
 ``knn_edge`` and ``knn_edge_pre`` launch their CUDA kernels on CUDA
 tensors and take their plain versions (``knn_edge_ref``,
@@ -208,13 +214,50 @@ def knn_edge_pre(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int,
 knn_edge_pre.launches = 0  # kernel launches since the last reset
 
 
+def _edge_gather_bwd(idx, y, dy, dmom, v_dtype, u_dtype):
+    """(dv, du) of y1 = v[idx] + u and its moments (edgeconv_pallas.py:
+    675-698, 927-943): the moments' cotangent folds into ``dy_eff =
+    bf16(dy + dmom[0] + 2 y dmom[1])``; ``du`` sums dy_eff over the k slots
+    in f32, ``dv`` scatters it along idx (kernel B13)."""
+    dy_eff = (dy.float() + dmom[0] + 2.0 * y.float() * dmom[1]).to(y.dtype)
+    du = dy_eff.float().sum(dim=2).to(u_dtype)
+    dv = scatter_add(idx, dy_eff.float().contiguous(), y.shape[1])
+    return dv.to(v_dtype), du
+
+
+class KnnEdgeGather(torch.autograd.Function):
+    """``(idx, y1, mom) = knn_edge(g, v, u, k, fast=fast)`` (B1 without the
+    extrema) with its VJP, the reference's B16 (edgeconv_pallas.py:
+    643-711): :func:`_edge_gather_bwd`; g and idx get no gradient."""
+
+    @staticmethod
+    def forward(ctx, g, v, u, k, fast):
+        idx, y, mom = knn_edge(g.detach(), v.detach(), u.detach(), k,
+                               fast=fast)
+        ctx.save_for_backward(idx, y)
+        ctx.dtypes = (v.dtype, u.dtype)
+        ctx.mark_non_differentiable(idx)
+        return idx, y, mom
+
+    @staticmethod
+    def backward(ctx, _didx, dy, dmom):
+        idx, y = ctx.saved_tensors
+        dv, du = _edge_gather_bwd(idx, y, dy, dmom, *ctx.dtypes)
+        return None, dv, du, None, None
+
+
+def knn_edge_gather(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int,
+                    *, fast: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable (idx, y1, mom) of :func:`knn_edge` in v and u."""
+    return KnnEdgeGather.apply(g, v, u, k, fast)
+
+
 class KnnEdgeGatherPre(torch.autograd.Function):
     """``(y1, mom) = knn_edge_pre(idx, v, u, k)`` with its VJP
-    (edgeconv_pallas.py:892-943): the moments' cotangent folds into
-    ``dy_eff = bf16(dy + dmom[0] + 2 y dmom[1])``; ``du`` sums dy_eff over
-    the k slots in f32, ``dv`` scatters it along idx (kernel B13), and idx
-    gets no gradient. Only tests reach it: the fused stages fold this
-    backward into their own (models/layers.py)."""
+    (edgeconv_pallas.py:892-943), :func:`_edge_gather_bwd`; idx gets no
+    gradient. Only tests reach it: the fused stages fold this backward
+    into their own (models/layers.py)."""
 
     @staticmethod
     def forward(ctx, idx, v, u, k):
@@ -227,10 +270,8 @@ class KnnEdgeGatherPre(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dmom):
         idx, y = ctx.saved_tensors
-        dy_eff = (dy.float() + dmom[0] + 2.0 * y.float() * dmom[1]).to(y.dtype)
-        du = dy_eff.float().sum(dim=2).to(ctx.dtypes[1])
-        dv = scatter_add(idx, dy_eff.float().contiguous(), y.shape[1])
-        return None, dv.to(ctx.dtypes[0]), du, None
+        dv, du = _edge_gather_bwd(idx, y, dy, dmom, *ctx.dtypes)
+        return None, dv, du, None
 
 
 def knn_edge_gather_pre(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor,

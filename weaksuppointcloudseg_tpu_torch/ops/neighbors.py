@@ -1,13 +1,23 @@
 """Pairwise distance, kNN and neighbor gather.
 
-Counterpart of weaksuppointcloudseg_tpu/ops/neighbors.py. ``knn_graph`` is
-the plain distance + stable sort (the reference's XLA path): the model runs
-it wherever ``use_fused_knn`` is off, on the card too, and it serves the
-kernels' plain versions. ``knn_graph_fused`` is kernel B12 on CUDA tensors
-(its plain version on CPU tensors). ``gather_neighbors`` gathers bf16 rows
-through kernel B14 (ops/gather.py; its plain version on CPU tensors) and
-f32 rows by indexing, as the reference leaves f32 to XLA's gather
-(neighbors.py:65-81); its backward is kernel B13 in both dtypes.
+Counterpart of weaksuppointcloudseg_tpu/ops/neighbors.py. The routes:
+
+- ``knn_graph``: the plain distance + stable sort (the reference's XLA
+  path). The model runs it wherever ``use_fused_knn`` is off, on the card
+  too, and it serves the kernels' plain versions.
+- ``knn_graph_fused``: kernel B12 on CUDA tensors (bf16 points widened
+  exactly to f32), its plain version on CPU tensors.
+- ``gather_neighbors``: bf16 rows through kernel B14 (ops/gather.py), f32
+  rows by indexing, as the reference leaves f32 to XLA's gather
+  (neighbors.py:65-81); its backward is kernel B13 in both dtypes.
+- ``neighbor_features_auto`` / ``edge_feature_auto`` with ``use_fused``:
+  bf16 features through kernel B15 (ops/knn_gather.py: the kNN and the
+  gather in one pass, backward B13), as the reference routes them to its
+  fused kernel (neighbors.py:152-158); f32 features through B12 +
+  ``gather_neighbors``. Without ``use_fused``: ``knn_graph`` +
+  ``gather_neighbors``.
+
+Every kernel takes its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import knn as knn_ops
 from weaksuppointcloudseg_tpu_torch.ops.gather import gather_rows
+from weaksuppointcloudseg_tpu_torch.ops.knn_gather import knn_gather
 from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 
@@ -86,18 +97,22 @@ def knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def knn_graph_fused(x: torch.Tensor, k: int, fast: bool = False) -> torch.Tensor:
     """int32 [B, N, k] kNN graph through kernel B12 (ops/knn.py): on CUDA
-    the kernel (f32 x), on CPU its plain version. No gradient flows."""
-    return knn_ops.knn(x.detach().contiguous(), k, fast=fast)
+    the kernel on x widened exactly to f32 (bf16 points as the reference's
+    knn_pallas takes them), on CPU its plain version. No gradient flows."""
+    return knn_ops.knn(x.detach().float().contiguous(), k, fast=fast)
 
 
 def neighbor_features_auto(g: torch.Tensor, f: torch.Tensor, k: int,
                            use_fused: bool = True,
                            fast: bool = False) -> torch.Tensor:
-    """Neighbor features f[idx(knn(g))] -> [B, N, k, C]. With ``use_fused``
-    the graph comes from B12, else from the plain distance + sort (the
-    reference's routes off its fused bf16 kernel, neighbors.py:145-160);
-    the gather is :func:`gather_neighbors`. Gradients flow to ``f`` through
-    the B13 scatter; ``g`` gets none."""
+    """Neighbor features f[idx(knn(g))] -> [B, N, k, C] (neighbors.py:
+    145-160). With ``use_fused``: bf16 ``f`` through kernel B15 (kNN and
+    gather in one pass), f32 ``f`` through B12 + :func:`gather_neighbors`;
+    without: the plain distance + sort + :func:`gather_neighbors`.
+    Gradients flow to ``f`` through the B13 scatter; ``g`` gets none."""
+    if use_fused and f.dtype == torch.bfloat16:
+        return knn_gather(g.detach().contiguous(), f.contiguous(), k,
+                          fast=fast)[1]
     idx = knn_graph_fused(g, k, fast=fast) if use_fused else knn_graph(g, k)
     return gather_neighbors(f, idx)
 
@@ -105,6 +120,8 @@ def neighbor_features_auto(g: torch.Tensor, f: torch.Tensor, k: int,
 def edge_feature_auto(g: torch.Tensor, f: torch.Tensor, k: int,
                       use_fused: bool = True, fast: bool = False) -> torch.Tensor:
     """EdgeConv edge features concat([f_i, f_j - f_i]) with the graph built
-    on ``g`` (neighbors.py:163-178)."""
-    idx = knn_graph_fused(g, k, fast=fast) if use_fused else knn_graph(g, k)
-    return edge_feature(f, idx)
+    on ``g``, the neighbours by :func:`neighbor_features_auto`
+    (neighbors.py:163-178)."""
+    nbr = neighbor_features_auto(g, f, k, use_fused, fast)
+    central = f[:, :, None, :].expand_as(nbr)
+    return torch.cat([central, nbr - central], dim=-1)

@@ -195,7 +195,8 @@ def grad_errors(model, got, want):
 
 # the fused training blocks, and their inputs whose true gradient is zero
 # (conv biases in front of a batch norm)
-_BLOCKS = ("_EdgeConvStageTrain", "_EdgeConvStage1Train", "_ConvBnNmaxTrain")
+_BLOCKS = ("_EdgeConvStageTrain", "_EdgeConvStage1Train", "_ConvBnNmaxTrain",
+           "_EdgeConvBnReluTrain")
 _NULL_INPUTS = ("b1", "b2", "b")
 
 
