@@ -470,14 +470,28 @@ def check_knn(gen, report):
     f32 Gram sums in another order than cuBLAS's, which can reorder exact
     near-ties; >= 98% fast, ROADMAP C5); the selected distances against
     the plain formula at the kernel's own indices, to 1e-5 of the distance
-    scale (fast: the dropped idx_bits of the mantissa)."""
+    scale (fast: the dropped idx_bits of the mantissa). On bf16 points
+    widened to f32, the indices and distances equal kernel B1's on the
+    same bf16 g bit for bit (the same distance arithmetic and order).
+    Besides the bound (the symmetric Gram), the time is set against the
+    all-pairs f32 floor: every (i, j) of C FMAs at the f32 peak, the
+    arithmetic this kernel does."""
     import torch
 
-    from weaksuppointcloudseg_tpu_torch.ops import knn
+    from weaksuppointcloudseg_tpu_torch.ops import edgeconv, knn
 
     max_err, times = 0.0, {}
     for c, k, fast in ((3, K, False), (3, K, True), (64, K, False),
                        (64, K, True), (3, 10, False)):
+        g = bf16_randn(gen, (TB, TN, c))
+        v = bf16_randn(gen, (TB, TN, 8))
+        got = knn.knn(g.float(), k, fast=fast, with_values=True)
+        b1 = edgeconv.knn_edge(g, v, v, k, fast=fast, with_values=True)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], b1[0]) and torch.equal(
+            got[1].view(torch.int32), b1[-1].view(torch.int32)),
+            f"knn C={c} k={k} fast={fast}: not B1's graph on bf16 points")
+        del g, v, got, b1
         x = torch.randn((TB, TN, c), generator=gen, device="cuda")
         idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
         want = knn.knn_ref(x, k, fast=fast)
@@ -505,10 +519,14 @@ def check_knn(gen, report):
         pair_ms = timed_ms(lambda: torch.topk(torch.cdist(x, x), k, dim=-1,
                                               largest=False))
         times[(c, k, fast)] = (ms, plain_ms, bnd)
-        print(f"  knn B={TB} N={TN} C={c} k={k} fast={fast}: index agreement "
-              f"{agree:.6f}, sqd abs err {err:.2e}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, cdist+topk {pair_ms:.3f} ms, bound "
-              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+        floor_ms = 2.0 * TB * TN * TN * c / PEAK_FLOPS["f32"] * 1e3
+        print(f"  knn B={TB} N={TN} C={c} k={k} fast={fast}: B1's graph on "
+              f"bf16 points, index agreement {agree:.6f}, sqd abs err "
+              f"{err:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"cdist+topk {pair_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+              f"({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound, "
+              f"{100 * floor_ms / ms:.1f}% of the all-pairs f32 floor "
+              f"({floor_ms:.3f} ms)")
     ms, plain_ms, bnd = times[(64, K, False)]
     report.append(kernel_row(
         "knn (B12)", "weaksuppointcloudseg_tpu_torch/ops/csrc/knn.cu",
@@ -3321,10 +3339,10 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 # device kernels by the kind of work (first match wins)
 KERNEL_GROUPS = (
     ("knn_edge_pre_kernel", "B11"), ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
-    ("KnnOut", "B12"), ("WGatherOut", "B9"), ("GatherOut", "B15"),
+    ("KnnTileOut", "B12"), ("WGatherOut", "B9"), ("GatherTileOut", "B15"),
     ("affinity_kernel", "B10"),
     ("gather_rows_kernel", "B14"),
-    ("sqnorm_kernel", "B1/B9/B12 norms"), ("wgather_pre", "B6 gather"),
+    ("sqnorm_kernel", "B1/B9/B12/B15 norms"), ("wgather_pre", "B6 gather"),
     ("scatter_add_weighted", "B6 scatter"),
     ("scatter_add_kernel", "B13"), ("conv_minmax", "B2"),
     ("conv_kmax_bwd", "B3"), ("scatter_bn_bwd", "B4"),

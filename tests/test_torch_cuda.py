@@ -168,6 +168,110 @@ def test_knn_kernel_nan_point(gen, fast):
     assert agree >= (0.98 if fast else 0.999), agree
 
 
+def b1_points(gen, b, n, c, case="random"):
+    """(bf16 g, the same points widened to f32) for B12-vs-B1 checks:
+    "duplicates" copies point 3 to n // 2 and n - 1 in every cloud (exact
+    ties) and clumps points 100-139 of cloud 0 onto point 10; "nan" gives
+    point 17 of cloud 1 NaN features."""
+    g = randn(gen, (b, n, c))
+    if case == "duplicates":
+        g[:, n // 2] = g[:, 3]
+        g[:, n - 1] = g[:, 3]
+        g[0, 100:140] = g[0, 10]
+    elif case == "nan":
+        g[1, 17] = float("nan")
+    return g, g.float()
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "nan"])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("c", [3, 5, 64, 128, 130])
+def test_knn_kernel_equals_b1s(gen, c, fast, case):
+    """B12 on bf16-representable f32 points selects kernel B1's graph on
+    the same bf16 g, bit for bit in idx and sqd (NaN bits included): the
+    same norms, fmaf chains, combine and keys, and the k smallest of the
+    same total order. N=999 is not a multiple of any tile; C=128 and 130
+    walk the channels in chunks (16-byte and 4-byte copies); duplicated
+    points tie exactly and come lowest index first."""
+    b, n, k = 2, 999, 20
+    g, x = b1_points(gen, b, n, c, case)
+    v = u = randn(gen, (b, n, 8))
+    idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
+    b1 = edgeconv.knn_edge(g, v, u, k, fast=fast, with_values=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, b1[0])
+    assert same_bits(sqd, b1[-1])
+    if case == "duplicates":
+        copies = torch.tensor([3, n // 2, n - 1], device="cuda",
+                              dtype=torch.int32)
+        assert torch.equal(idx[:, 3, :3], copies.expand(b, 3))
+    if case == "nan":
+        assert torch.equal(idx[1, 17], torch.arange(k, device="cuda",
+                                                    dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,k", [(999, 1), (999, 32), (999, 64), (50, 50)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_knn_kernels_k_range(gen, n, k, fast):
+    """k from 1 to B12's limit of 64, and k = N: B12 (and B15 up to its
+    limit of 32) equal B1 bit for bit on the same bf16 g and agree with
+    the plain version by the usual rates; at k = N every row lists every
+    point once."""
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+
+    b = 2
+    g, x = b1_points(gen, b, n, 16)
+    v = u = randn(gen, (b, n, 8))
+    idx, sqd = knn.knn(x, k, fast=fast, with_values=True)
+    b1 = edgeconv.knn_edge(g, v, u, k, fast=fast, with_values=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, b1[0]) and same_bits(sqd, b1[-1])
+    if k <= kg.K_MAX:
+        i15, _, s15 = kg.knn_gather_with_sqdist(g, v, k, fast=fast)
+        assert torch.equal(i15, idx) and same_bits(s15, sqd)
+    want = knn.knn_ref(x, k, fast=fast)
+    agree = (idx == want).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+    if k == n:
+        assert torch.equal(idx.sort(-1).values, torch.arange(
+            n, device="cuda", dtype=torch.int32).expand(b, n, n))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_knn_kernels_past_the_old_cap(gen, fast):
+    """N=6000 at C=64, past the 4,851 points the distance-rows design fit
+    in shared memory: B12 and B15 against their plain versions by the
+    usual agreement rates, B15's rows bitwise at its own indices."""
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
+
+    b, n, c, k = 2, 6000, 64, 20
+    x = torch.randn((b, n, c), generator=gen, device="cuda")
+    idx = knn.knn(x, k, fast=fast)
+    agree = (idx == knn.knn_ref(x, k, fast=fast)).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+    g, f = randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    idx, nbr = kg.knn_gather(g, f, k, fast=fast)
+    want = kg.knn_gather_ref(g, f, k, fast=fast)[0]
+    agree = (idx == want).float().mean().item()
+    assert agree >= (0.98 if fast else 0.999), agree
+    assert torch.equal(nbr, gather.gather_rows_ref(f, idx))
+
+
+def test_knn_kernel_refuses(gen):
+    """k above B12's limit of 64, or above N, raises before any launch."""
+    x = torch.randn((1, 100, 3), generator=gen, device="cuda")
+    before = knn.knn.launches
+    with pytest.raises(ValueError, match=r"k=65 must be in \[1, min\(64"):
+        knn.knn(x, 65)
+    with pytest.raises(ValueError, match=r"k=101 .*N=100"):
+        knn.knn(x[:, :100], 101)
+    assert knn.knn.launches == before
+
+
 @pytest.mark.parametrize("fast", [False, True])
 def test_knn_edge_kernel_nan_point(gen, fast):
     """B1 with a NaN point in g: the same order as B12 (NaN after every

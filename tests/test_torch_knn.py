@@ -106,3 +106,40 @@ def test_fused_graph_matches_plain_graph():
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         knn.knn(torch.zeros((1, 8, 3), device="meta"), 4)
+
+
+@pytest.mark.parametrize("b,n,c,k,k_max", [
+    (64, 2048, 64, 20, knn.K_MAX),    # the training batch
+    (64, 6000, 64, 20, knn.K_MAX),    # past the distance-rows cap (4,851)
+    (2, 100_000, 1024, 64, knn.K_MAX),
+    (65535, 50, 3, 50, knn.K_MAX),    # k = N, the grid's largest batch
+    (1, 1, 1, 1, 32),
+    (8, 9000, 9, 32, 32)])
+def test_tiles_launch_accepts(b, n, c, k, k_max):
+    """The tiled kernels' shared memory does not grow with N or C, so the
+    check takes any N and C inside the k and batch limits."""
+    knn.check_tiles_launch("knn", b, n, c, k, k_max)
+
+
+@pytest.mark.parametrize("b,n,c,k,k_max,match", [
+    (4, 2048, 64, 65, knn.K_MAX, r"k=65 must be in \[1, min\(64, N=2048\)\]"),
+    (4, 2048, 64, 33, 32, r"k=33 must be in \[1, min\(32, N=2048\)\]"),
+    (4, 10, 3, 11, knn.K_MAX, r"k=11 .*N=10"),
+    (4, 10, 3, 0, knn.K_MAX, "k=0"),
+    (65536, 64, 3, 20, knn.K_MAX, "batch 65536"),
+    (0, 64, 3, 20, knn.K_MAX, "batch 0"),
+    (4, 64, 0, 20, knn.K_MAX, "C=0")])
+def test_tiles_launch_refuses(b, n, c, k, k_max, match):
+    """k above the kernel's list (64 for B12, 32 for B15) or above N, and
+    a batch the grid's y dimension cannot hold, raise with the limit."""
+    with pytest.raises(ValueError, match=match):
+        knn.check_tiles_launch("knn", b, n, c, k, k_max)
+
+
+def test_b15_takes_the_tiled_check():
+    """B15's wrapper holds k to 32 through the same check."""
+    from weaksuppointcloudseg_tpu_torch.ops import knn_gather
+
+    assert knn_gather.K_MAX == 32
+    with pytest.raises(ValueError, match=r"min\(32"):
+        knn.check_tiles_launch("knn_gather", 2, 64, 3, 33, knn_gather.K_MAX)

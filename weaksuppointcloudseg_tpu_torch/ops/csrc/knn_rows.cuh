@@ -1,6 +1,5 @@
-// The distance pass and k selection of kernel B12 (knn.cu), shared with
-// kernel B9 (knn_wgather.cu), which runs them with a weighted-gather
-// epilogue instead of B12's plain index output.
+// The distance pass and k selection of kernel B9 (knn_wgather.cu), which
+// runs them with a weighted-gather epilogue.
 //
 // For every point i of every cloud b the kernel computes the squared
 // distances from x[b,i] to all x[b,j] in IEEE f32, in the Pallas kernels'

@@ -1,8 +1,10 @@
 """Kernel B12: k nearest neighbours of f32 points (``ops/csrc/knn.cu``).
 
 Counterpart of weaksuppointcloudseg_tpu/ops/knn_pallas.py::knn_pallas. The
-B x N x N distances never reach device memory: the kernel keeps whole
-distance rows in shared memory and selects with a warp argmin.
+B x N x N distances never reach device memory: the kernel
+(``ops/csrc/knn_tiles.cuh``) computes them tile by tile in registers and
+streams each row's k smallest through a threshold filter into a per-row
+heap, so shared memory does not grow with N.
 
 ``knn`` launches the CUDA kernel on CUDA tensors and takes the plain
 version ``knn_ref`` on CPU tensors; any other device raises. The plain
@@ -20,6 +22,8 @@ from weaksuppointcloudseg_tpu_torch.ops import _build
 
 _PAD_PACKED = 0x7F000000  # packed value of a column >= n_valid (fast mode)
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on an H100
+K_MAX = 64  # the largest k of B12 (knn_tiles.cuh keeps 64-entry row lists)
+_GRID_Y_MAX = 65535  # the tiled kernels' grid holds the batch in y
 
 
 def idx_bits(n: int) -> int:
@@ -69,10 +73,27 @@ def select_ref(d: torch.Tensor, k: int, *, fast: bool,
     return idx[..., :k].int(), sqd[..., :k]
 
 
+def check_tiles_launch(what: str, b: int, n: int, c: int, k: int,
+                       k_max: int = K_MAX) -> None:
+    """Raise for a launch the tiled kNN kernels (ops/csrc/knn_tiles.cuh,
+    kernels B12 and B15) do not take: k outside [1, min(k_max, N)] (a
+    row's sorted list holds 32 or 64 entries: B12 takes k <= 64, B15
+    k <= 32), a batch outside the grid's y dimension [1, 65535], or points
+    without channels. Shared memory does not depend on N or k beyond the
+    list, so any N and C are taken."""
+    if not 1 <= k <= min(k_max, n):
+        raise ValueError(f"{what}: k={k} must be in [1, min({k_max}, N={n})]")
+    if not 1 <= b <= _GRID_Y_MAX:
+        raise ValueError(f"{what}: batch {b} outside the grid's "
+                         f"[1, {_GRID_Y_MAX}]")
+    if c < 1:
+        raise ValueError(f"{what}: C={c}, points need a channel")
+
+
 def check_rows_launch(what: str, b: int, n: int, c: int) -> None:
     """Raise for a shape the distance-rows kernel (ops/csrc/knn_rows.cuh,
-    kernels B12 and B9) cannot launch: a block keeps 8 full distance rows
-    and a 256-point tile of C-channel points in shared memory, and the grid
+    kernel B9) cannot launch: a block keeps 8 full distance rows and a
+    256-point tile of C-channel points in shared memory, and the grid
     holds the batch in its y dimension."""
     if b > 65535:
         raise ValueError(f"{what}: batch {b} exceeds the grid limit")
@@ -97,7 +118,7 @@ def knn(x: torch.Tensor, k: int, *, fast: bool = False,
 
     Args:
       x: [B, N, C] f32 points or features.
-      k: neighbours per point, 1 <= k <= N.
+      k: neighbours per point, 1 <= k <= N; on CUDA also k <= 64.
       fast: packed-min selection (distances clamped at 0; near-ties may
         order differently from the exact mode, so it is held to an
         agreement rate, never equality).
@@ -107,9 +128,8 @@ def knn(x: torch.Tensor, k: int, *, fast: bool = False,
       int32 idx [B, N, k] nearest first; with ``with_values`` a tuple
       (idx, sqd f32 [B, N, k]).
 
-    On CUDA a block keeps 8 full distance rows and a 256-point tile of x in
-    shared memory: 4 * (264 * (ceil4(C) + 4) + 8 N) bytes must fit 227 KB
-    (C=64: N <= 4851); a launch past that raises.
+    On CUDA any N and C are taken; k above 64 or a batch past 65535 raises
+    (:func:`check_tiles_launch`).
     """
     if x.device.type == "cpu":
         return knn_ref(x, k, fast=fast, with_values=with_values)
@@ -118,9 +138,7 @@ def knn(x: torch.Tensor, k: int, *, fast: bool = False,
     b, n, c = x.shape
     dev = x.device
     _build.check_operand(x, "x", torch.float32, dev, (b, n, c))
-    if not 1 <= k <= n:
-        raise ValueError(f"knn: k={k} must be in [1, N={n}]")
-    check_rows_launch("knn", b, n, c)
+    check_tiles_launch("knn", b, n, c, k)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     sqd = (torch.empty((b, n, k), dtype=torch.float32, device=dev)
            if with_values else None)

@@ -29,7 +29,7 @@ import torch
 from weaksuppointcloudseg_tpu_torch.ops import _build
 from weaksuppointcloudseg_tpu_torch.ops.gather import gather_rows_ref
 from weaksuppointcloudseg_tpu_torch.ops.knn import (
-    check_rows_launch,
+    check_tiles_launch,
     distances,
     idx_bits,
     select_ref,
@@ -37,6 +37,7 @@ from weaksuppointcloudseg_tpu_torch.ops.knn import (
 from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 _DTYPES = (torch.bfloat16, torch.float32)
+K_MAX = 32  # the largest k of B15
 
 
 def knn_gather_ref(g: torch.Tensor, f: torch.Tensor, k: int, *,
@@ -63,9 +64,7 @@ def _forward(g: torch.Tensor, f: torch.Tensor, k: int, fast: bool,
         if t.dtype not in _DTYPES:
             raise ValueError(f"{name}: dtype {t.dtype}, expected bf16 or f32")
         _build.check_operand(t, name, t.dtype, dev, (b, n, c))
-    if not 1 <= k <= min(32, n):
-        raise ValueError(f"knn_gather: k={k} must be in [1, min(32, N={n})]")
-    check_rows_launch("knn_gather", b, n, cg)
+    check_tiles_launch("knn_gather", b, n, cg, k, K_MAX)
     g32 = g.float()  # exact for bf16: the distances are B1's
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     nbr = torch.empty((b, n, k, cf), dtype=f.dtype, device=dev)
@@ -121,9 +120,8 @@ def knn_gather(g: torch.Tensor, f: torch.Tensor, k: int, *, fast: bool = False,
     Returns:
       (idx int32 [B,N,k], nbr [B,N,k,Cf] in f's dtype [, sqd f32 [B,N,k]]).
 
-    On CUDA a block keeps 8 full distance rows and a 256-point tile of g in
-    shared memory (ops/knn.py::check_rows_launch); a launch past that
-    raises.
+    On CUDA any N and Cg are taken; k above 32 or a batch past 65535
+    raises (ops/knn.py::check_tiles_launch).
     """
     return KnnGather.apply(g, f, k, fast, with_values)
 
