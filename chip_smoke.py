@@ -94,12 +94,20 @@ Phases:
 
 Phase 2 also holds B15 (kNN + row gather) to its plain version and to
 B1's graph at the f32 training batch's shape, with B15's and B16's VJPs,
+B13, B4 and B6's scatter bit for bit against their plain versions run on
+the CPU (a slice of the batch) with the inverse graph they sum over
+against its plain version, two launches of every kernel that sums (B1-B6,
+B11, B13) bit for bit equal (ROADMAP C16),
 B14 (the bf16 row gather) to its plain version
 bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
 skipped, and B11 (the first conv on a given graph) to B1's output at
 B1's own graph and to its plain version at the static stages' shapes.
-Each phase prints its wall seconds.
+Phases 4, 6, 7, 9 (static ShapeNet) and 12 (bf16 fused classifier) repeat
+one training step from the same state and require the same bits in every
+loss, gradient, BN statistic and weight (ROADMAP C16), with a diagnostic
+step under PyTorch's deterministic mode that names any operator known to
+sum in a run-dependent order. Each phase prints its wall seconds.
 
 Prints a JSON line of per-kernel results, then the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
@@ -146,6 +154,44 @@ def timed_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn()`` with the host's launch time
+    hidden: ``reps`` calls queued behind a sleep kernel, CUDA events around
+    the calls (what the call costs a busy card; ``timed_ms`` also counts
+    the host's lead when the card waits for it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, patterns, reps: int = 5):
+    """Device time per call of ``fn()`` of the kernels whose names hold
+    each of ``patterns`` (torch.profiler over ``reps`` calls), a tuple."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return tuple(sum(e.self_device_time_total for e in events if p in e.key)
+                 / 1e3 / reps for p in patterns)
 
 
 # NVIDIA's published H100 SXM peaks at 700 W (dense): the least time a
@@ -227,6 +273,42 @@ def require(cond, msg):
         raise Failure(msg)
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit on the CPU, NaN payloads aside (a NaN's payload is
+    the hardware's choice): the same shape and dtype, the same NaN
+    positions, every other element's bits equal (-0 and +0 differ)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a).view(ints), torch.where(nb, 0, b).view(ints))
+
+
+def all_same_bits(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(same_bits(x, y) for x, y in zip(xs, ys))
+
+
+def repeats(fn, what) -> None:
+    """Two launches of ``fn()`` (a tensor or a tuple of tensors) give the
+    same bits (ROADMAP C16: no float atomics in the kernels)."""
+    import torch
+
+    first, second = fn(), fn()
+    if torch.is_tensor(first):
+        first, second = (first,), (second,)
+    same = all_same_bits([t for t in first if t is not None],
+                         [t for t in second if t is not None])
+    print(f"  {what}: two launches bit for bit equal: {same}")
+    require(same, f"{what}: two launches differ")
+
+
 # ---------------------------------------------------------------- phase 2
 
 def check_knn_edge(gen, report):
@@ -240,7 +322,8 @@ def check_knn_edge(gen, report):
     checked against the plain formulas evaluated at the kernel's own
     indices: y1 and the k-extrema bitwise, the selected distances to
     1e-5 relative of the norm scale, the moments to 1e-5 of the sum of
-    magnitudes (atomic f32 sums in another order).
+    magnitudes (f32 sums in another order than the plain version's). Two
+    launches give the same bits (fixed-order moments, ROADMAP C16).
     """
     import torch
 
@@ -295,6 +378,8 @@ def check_knn_edge(gen, report):
     g = bf16_randn(gen, (B, N, 64))
     v = bf16_randn(gen, (B, N, 64))
     u = bf16_randn(gen, (B, N, 64))
+    repeats(lambda: edgeconv.knn_edge(g, v, u, K, fast=True, with_minmax=True),
+            f"knn_edge (B1) B={B} N={N} Cg=C=64 fast")
     ms = timed_ms(lambda: edgeconv.knn_edge(g, v, u, K, fast=True))
     plain_ms = timed_ms(lambda: edgeconv.knn_edge_ref(g, v, u, K, fast=True))
     idx, y, mom = edgeconv.knn_edge(g, v, u, K, fast=True)
@@ -317,7 +402,8 @@ def check_knn_edge_pre(gen, report):
     the static path's producer). Fed B1's own indices, y1 and the
     k-extrema must equal B1's bit for bit (the same add and one bf16
     rounding) and the plain version's; the moments within 1e-5 of the sum
-    of magnitudes (f32 atomics in another order)."""
+    of magnitudes (f32 sums in another order); two launches bit for bit
+    equal."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import edgeconv
@@ -349,6 +435,8 @@ def check_knn_edge_pre(gen, report):
                   f"plain version's {same_ref}; mom rel err {mom_err:.2e}")
             require(same_b1 and same_ref, f"knn_edge_pre {what}: y1 differs")
             require(mom_err <= 1e-5, f"knn_edge_pre {what}: moment error")
+        repeats(lambda: edgeconv.knn_edge_pre(idx, v, u, K, with_minmax=True),
+                f"knn_edge_pre (B11) {what}")
         ms = timed_ms(lambda: edgeconv.knn_edge_pre(idx, v, u, K))
         plain_ms = timed_ms(lambda: edgeconv.knn_edge_pre_ref(idx, v, u, K),
                             reps=3)
@@ -534,13 +622,38 @@ def check_knn(gen, report):
         plain_ms, bnd))
 
 
-def check_scatter_add(gen, report):
-    """B13 against index_add_ at the training path's shapes (the backward
-    of the stage gathers: B=64, P=N=2048, k=20, C=64 and C=3).
+def check_inverse_graph(idx, n, what):
+    """The inverse-graph kernel against its plain version (a stable sort
+    on the card): offsets and sources equal. Returns (build ms, plain ms,
+    bound)."""
+    import torch
 
-    Tolerance: f32 atomics add the k contributions to a row in an order
-    that changes from run to run, so each output element is held to 1e-5
-    of the sum of magnitudes that reach it (ROADMAP C4)."""
+    from weaksuppointcloudseg_tpu_torch.ops import scatter
+
+    got = scatter.inverse_graph(idx, n)
+    want = scatter.inverse_graph_ref(idx, n)
+    torch.cuda.synchronize()
+    same = torch.equal(got.offsets, want.offsets) and torch.equal(got.src,
+                                                                   want.src)
+    require(same, f"inverse_graph {what}: differs from its plain version")
+    ms = timed_ms(lambda: scatter.inverse_graph(idx, n))
+    plain_ms = timed_ms(lambda: scatter.inverse_graph_ref(idx, n))
+    # idx read once, offsets and src written once; integer work only
+    return ms, plain_ms, bound(0.0, "f32", nbytes(idx, got.offsets, got.src))
+
+
+def check_scatter_add(gen, report):
+    """B13 at the training path's shapes (the backward of the stage
+    gathers: B=64, P=N=2048, k=20, C=64 and C=3), with the inverse graph
+    it sums over.
+
+    Checks: the inverse equals its plain version; two launches give the
+    same bits; on a slice of the batch (B=4) the kernel equals the plain
+    version run on the CPU bit for bit (both sum each row in ascending
+    slot order); at the full shape each element within 1e-5 of the sum of
+    magnitudes that reach it (ROADMAP C4, kept). Times: the kernel with its
+    inverse build (what a scatter costs), the build alone, and the device
+    time of each of the two within the scatter (torch.profiler)."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import scatter
@@ -550,6 +663,7 @@ def check_scatter_add(gen, report):
         idx = torch.randint(0, TN, (TB, TN, K), generator=gen, device="cuda",
                             dtype=torch.int32)
         g = torch.randn((TB, TN, K, c), generator=gen, device="cuda")
+        inv_ms, inv_plain_ms, inv_bnd = check_inverse_graph(idx, TN, f"C={c}")
         got = scatter.scatter_add(idx, g, TN)
         want = scatter.scatter_add_ref(idx, g, TN)
         mags = scatter.scatter_add_ref(idx, g.abs(), TN)
@@ -558,23 +672,48 @@ def check_scatter_add(gen, report):
         require(bool((err <= 1e-5 * mags + 1e-6).all()),
                 f"scatter_add C={c}: {err.max().item()}")
         max_err = max(max_err, err.max().item())
+        cpu = same_bits(scatter.scatter_add(idx[:4].contiguous(),
+                                            g[:4].contiguous(), TN),
+                        scatter.scatter_add_ref(idx[:4].cpu(), g[:4].cpu(), TN))
+        print(f"  scatter_add (B13) C={c}: B=4 slice bit for bit the plain "
+              f"version on the CPU: {cpu}")
+        require(cpu, f"scatter_add C={c}: differs from the CPU plain version")
+        repeats(lambda: scatter.scatter_add(idx, g, TN),
+                f"scatter_add (B13) B={TB} C={c}")
         ms = timed_ms(lambda: scatter.scatter_add(idx, g, TN))
+        dev_ms = device_ms(lambda: scatter.scatter_add(idx, g, TN))
+        split = kernel_device_ms(lambda: scatter.scatter_add(idx, g, TN),
+                                 ("inverse_", "csr_gather"))
         plain_ms = timed_ms(lambda: scatter.scatter_add_ref(idx, g, TN))
         rows = scatter._flat_rows(idx, TN)
         flat = g.reshape(-1, c)
         out = torch.zeros((TB * TN, c), device="cuda")
         lib_ms = timed_ms(lambda: out.index_add_(0, rows, flat))
+        lib_dev_ms = device_ms(lambda: out.index_add_(0, rows, flat))
         bnd = bound(float(g.numel()), "f32", nbytes(idx, g, got))
         times[c] = (ms, plain_ms, bnd, lib_ms)
+        MEASURED[f"scatter_add_c{c}"] = ms
         print(f"  scatter_add B={TB} P=N={TN} k={K} C={c}: max abs err "
-              f"{err.max().item():.2e}; kernel {ms:.3f} ms, plain "
+              f"{err.max().item():.2e}; kernel {ms:.3f} ms with its inverse "
+              f"build (on the device {split[1]:.4f} ms gather, "
+              f"{split[0]:.4f} ms build; the build alone "
+              f"{inv_ms:.3f} ms, its plain version "
+              f"{inv_plain_ms:.3f} ms, its bound {inv_bnd[0]:.4f} ms), plain "
               f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms, bound "
-              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+              f"{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound; "
+              f"with the host's launches hidden (device_ms): kernel "
+              f"{dev_ms:.4f} ms, index_add_ {lib_dev_ms:.4f} ms")
+        times[f"inv{c}"] = (inv_ms, inv_plain_ms, inv_bnd)
     ms, plain_ms, bnd, lib_ms = times[64]
     report.append(kernel_row(
         "scatter_add (B13)", "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_add.cu",
         "weaksuppointcloudseg_tpu/ops/scatter_pallas.py:358", max_err, ms,
         plain_ms, bnd, library_ms=lib_ms))
+    report.append(kernel_row(
+        "inverse_graph (B13/B4/B6)",
+        "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_add.cu",
+        "weaksuppointcloudseg_tpu/ops/scatter_pallas.py:358", 0.0,
+        *times["inv64"]))
 
 
 def check_gather_rows(gen, report):
@@ -695,7 +834,7 @@ def check_vjps(gen):
     card against their plain versions on the CPU at the kernel's own
     indices, at the three-conv stage's shape (Cg=3, C=64, k=20) for 8
     clouds of 2048 points. Tolerances: df within 1e-5 of the scattered
-    magnitudes plus one bf16 ulp of the rounded sum (f32 atomics); y1
+    magnitudes plus one bf16 ulp of the rounded sum (ROADMAP C4); y1
     bitwise; du within one bf16 ulp; dv within one ulp plus 1e-4 (as
     tests/test_torch_cuda.py)."""
     import torch
@@ -756,8 +895,9 @@ def check_conv_minmax(gen, report):
     Tolerances: f32 sums in another order can put y one bf16 ulp away, so
     the extrema within one ulp (2^-7 relative), the plain y at the
     kernel's slot equal to the kernel's extremum within an ulp, slots
-    agreeing on >= 99%; the moments (f32 atomics) within 1e-5 of the sums
-    of magnitudes (ROADMAP C4)."""
+    agreeing on >= 99%; the moments (f32 sums in another order) within
+    1e-5 of the sums of magnitudes (ROADMAP C4); two launches bit for bit
+    equal."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import conv_kmax
@@ -784,6 +924,8 @@ def check_conv_minmax(gen, report):
                 f"conv_minmax 64->{c2}: extrema {ext}, slots {slot}/{agree}, "
                 f"moments {mom}")
         max_err = max(max_err, (got[0].float() - want[0].float()).abs().max().item())
+        repeats(lambda: conv_kmax.conv_minmax(h1, w2, b2, sc1, sh1),
+                f"conv_minmax (B2) 64->{c2}")
         ms = timed_ms(lambda: conv_kmax.conv_minmax(h1, w2, b2, sc1, sh1))
         plain_ms = timed_ms(lambda: conv_kmax.conv_minmax_ref(h1, w2, b2, sc1, sh1))
         bnd = bound(2.0 * PB * PN * K * 64 * c2, "bf16",
@@ -805,10 +947,11 @@ def check_conv_kmax_bwd(gen, report):
     """B3 against conv_kmax_bwd_ref at the stage shapes (C1=64, C2=64 and
     128, the BN1 fold on). Tolerances: dz within one bf16 ulp of the plain
     value (+1e-5 of the largest: f32 sums in another order, then one
-    rounding); T_sp, G and S1 (sums of 1.3M terms, per block and then with
-    f32 atomics) within 1e-5 of the sums of magnitudes of the exact (f64)
-    sums, which the plain version's f32 einsum misses by more (1.5e-5 for
-    G); (a1, a2) within 1e-5 of the sums of magnitudes of the plain ones."""
+    rounding); T_sp, G and S1 (sums of 1.3M terms, per block and then over
+    the blocks in block order) within 1e-5 of the sums of magnitudes of the
+    exact (f64) sums, which the plain version's f32 einsum misses by more
+    (1.5e-5 for G); (a1, a2) within 1e-5 of the sums of magnitudes of the
+    plain ones; two launches bit for bit equal."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import conv_kmax
@@ -851,6 +994,8 @@ def check_conv_kmax_bwd(gen, report):
         require(dz_err <= 1 and sums <= 1e-5,
                 f"conv_kmax_bwd C2={c2}: dz {dz_err}, sums {sums}")
         max_err = max(max_err, (got[0].float() - want[0].float()).abs().max().item())
+        repeats(lambda: conv_kmax.conv_kmax_bwd(*args),
+                f"conv_kmax_bwd (B3) 64x{c2}")
         ms = timed_ms(lambda: conv_kmax.conv_kmax_bwd(*args))
         plain_ms = timed_ms(lambda: conv_kmax.conv_kmax_bwd_ref(*args), reps=3)
         r = PB * PN * K
@@ -873,9 +1018,12 @@ def check_conv_kmax_bwd(gen, report):
 def check_scatter_bn_bwd(gen, report):
     """B4 against scatter_bn_bwd_ref at the stage shape (B=32, P=N=2048,
     k=20, C=64), dense (the two-conv stages) and sparse (the single-conv
-    stage). Tolerances: du sums the same f32 dy in another order, 1e-6 of
-    the magnitudes; dv adds bf16(dy) with f32 atomics in a run-dependent
-    order, 1e-5 of the sums of magnitudes (ROADMAP C4)."""
+    stage). On a slice of the batch (B=4) dv and du equal the plain version
+    run on the CPU bit for bit (dv sums each row over the inverse graph in
+    ascending slot order, du each point's slots in order); two launches
+    give the same bits; at the full shape the tolerances of ROADMAP C4,
+    kept: du 1e-6 of the magnitudes, dv 1e-5 of the sums of magnitudes.
+    The kernel's time includes its inverse build."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import scatter
@@ -906,6 +1054,20 @@ def check_scatter_bn_bwd(gen, report):
         del mag, first
         require(du_err <= 1e-6 and dv_err <= 1e-5,
                 f"scatter_bn_bwd sparse={sparse}: du {du_err}, dv {dv_err}")
+        part = (big[0][:4].contiguous(), big[1][:4].contiguous()) if sparse \
+            else big[:4].contiguous()
+        cpu = all_same_bits(
+            scatter.scatter_bn_bwd(idx[:4].contiguous(), y[:4].contiguous(),
+                                   part, sv, al, be, PN),
+            scatter.scatter_bn_bwd_ref(
+                idx[:4].cpu(), y[:4].cpu(),
+                tuple(t.cpu() for t in part) if sparse else part.cpu(),
+                sv.cpu(), al.cpu(), be.cpu(), PN))
+        print(f"  scatter_bn_bwd (B4) {'sparse' if sparse else 'dense'}: B=4 "
+              f"slice bit for bit the plain version on the CPU: {cpu}")
+        require(cpu, f"scatter_bn_bwd sparse={sparse}: differs from the CPU")
+        repeats(lambda: scatter.scatter_bn_bwd(idx, y, big, sv, al, be, PN),
+                f"scatter_bn_bwd (B4) B={PB} {'sparse' if sparse else 'dense'}")
         max_err = max(max_err, (dv - want_dv).abs().max().item(),
                       (du - want_du).abs().max().item())
         ms = timed_ms(lambda: scatter.scatter_bn_bwd(idx, y, big, sv, al, be, PN))
@@ -914,9 +1076,14 @@ def check_scatter_bn_bwd(gen, report):
         ins = (idx, y, *(big if sparse else (big, sv)), al, be)
         bnd = bound(5.0 * y.numel(), "f32", nbytes(*ins, dv, du))
         times[sparse] = (ms, plain_ms, bnd)
+        inv_ms = timed_ms(lambda: scatter.inverse_graph(idx, PN))
+        dev_ms = device_ms(lambda: scatter.scatter_bn_bwd(
+            idx, y, big, sv, al, be, PN))
         print(f"  scatter_bn_bwd B={PB} P=N={PN} k={K} C=64 "
               f"{'sparse' if sparse else 'dense'}: du {du_err:.2e}, dv "
-              f"{dv_err:.2e} of the magnitudes; kernel {ms:.3f} ms, plain "
+              f"{dv_err:.2e} of the magnitudes; kernel {ms:.3f} ms ({dev_ms:.3f} "
+              f"with the host's launches hidden; its inverse build alone "
+              f"{inv_ms:.3f} ms), plain "
               f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
               f"{100 * bnd[0] / ms:.1f}% of bound")
     ms, plain_ms, bnd = times[False]
@@ -975,7 +1142,8 @@ def check_conv_nmax(gen, report):
     pins the rounding of dy to bf16 before the products); and grid inputs
     (h on a 2^-7 grid below 2, W on a 2^-6 grid, b on their products'
     2^-13 grid), where y is exact in f32 in any order and
-    :func:`nmax_bwd_errors` holds every output to its exact value."""
+    :func:`nmax_bwd_errors` holds every output to its exact value. Two
+    launches of each give the same bits (fixed-order sums)."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import conv_kmax
@@ -1021,6 +1189,10 @@ def check_conv_nmax(gen, report):
         require(max(dh_err, dw_err, db_err) <= 1,
                 f"conv_nmax_bwd {c1}->1024: dh {dh_err}, dW {dw_err}, db {db_err}")
         errs[1] = max(errs[1], (gb[1] - wb[1]).abs().max().item())
+        repeats(lambda: conv_kmax.conv_nmax(h, w, b),
+                f"conv_nmax (B5) {c1}->1024")
+        repeats(lambda: conv_kmax.conv_nmax_bwd(*bargs),
+                f"conv_nmax_bwd (B5) {c1}->1024")
         fwd = (timed_ms(lambda: conv_kmax.conv_nmax(h, w, b)),
                timed_ms(lambda: conv_kmax.conv_nmax_ref(h, w, b)),
                bound(2.0 * PB * PN * c1 * 1024, "bf16", nbytes(h, w, b, *got)))
@@ -1110,9 +1282,11 @@ def check_wgather_pre(gen, report):
 def check_scatter_add_weighted(gen, report):
     """B6's scatter against scatter_add_weighted_ref at both paths' shapes
     (ShapeNet B=64, N=2048, 51 channels; S3DIS B=28, N=4096, 14 channels;
-    k=10). Tolerance: f32 atomics add in a run-dependent order, 1e-5 of
-    the sum of magnitudes sum |w| |ct| per output element (ROADMAP C4).
-    The library time is one index_add_ of the expanded w * ct."""
+    k=10). On a slice (B=4) bit for bit the plain version on the CPU; two launches give the same
+    bits; at the full shape 1e-5 of the sum of magnitudes sum |w| |ct| per
+    output element (ROADMAP C4, kept). The kernel's time includes its
+    inverse build. The library time is one index_add_ of the expanded
+    w * ct."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import scatter
@@ -1129,6 +1303,15 @@ def check_scatter_add_weighted(gen, report):
         torch.cuda.synchronize()
         err = sum_err(got, want, mags)
         require(err <= 1e-5, f"scatter_add_weighted C={c}: {err}")
+        sl = [t[:4].contiguous() for t in (idx, w, ct)]
+        cpu = same_bits(scatter.scatter_add_weighted(*sl, n),
+                        scatter.scatter_add_weighted_ref(
+                            *[t.cpu() for t in sl], n))
+        print(f"  scatter_add_weighted (B6) C={c}: B=4 slice bit for bit the "
+              f"plain version on the CPU: {cpu}")
+        require(cpu, f"scatter_add_weighted C={c}: differs from the CPU")
+        repeats(lambda: scatter.scatter_add_weighted(idx, w, ct, n),
+                f"scatter_add_weighted (B6) B={b} C={c}")
         ms = timed_ms(lambda: scatter.scatter_add_weighted(idx, w, ct, n))
         plain_ms = timed_ms(lambda: scatter.scatter_add_weighted_ref(idx, w, ct, n))
         rows = scatter._flat_rows(idx, n)
@@ -1138,8 +1321,12 @@ def check_scatter_add_weighted(gen, report):
         del contrib, rows, out
         bnd = bound(2.0 * idx.numel() * c, "f32", nbytes(idx, w, ct, got))
         times[c] = ((got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms)
+        inv_ms = timed_ms(lambda: scatter.inverse_graph(idx, n))
+        dev_ms = device_ms(lambda: scatter.scatter_add_weighted(idx, w, ct, n))
         print(f"  scatter_add_weighted (B6) B={b} P=N={n} k={SK} C={c}: "
-              f"{err:.2e} of the magnitudes; kernel {ms:.3f} ms, plain "
+              f"{err:.2e} of the magnitudes; kernel {ms:.3f} ms ({dev_ms:.3f} "
+              f"with the host's launches hidden; its inverse build alone "
+              f"{inv_ms:.3f} ms), plain "
               f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
     max_err, ms, plain_ms, bnd, lib_ms = times[51]
@@ -1574,7 +1761,8 @@ def phase_train(report) -> None:
     # rampup 0: the gate is on and the pairs are augmented from epoch 0
     cfg = dataclasses.replace(base, train=dataclasses.replace(
         base.train, batch_size=TB // 2, rampup=0))
-    kernels = {"knn (B12)": knn.knn, "scatter_add (B13)": scatter.scatter_add}
+    kernels = {"knn (B12)": knn.knn, "scatter_add (B13)": scatter.scatter_add,
+               "inverse_graph (B13/B4/B6)": scatter.inverse_graph}
     with tempfile.TemporaryDirectory() as tmp:
         ds = in_memory_dataset(tmp, splits)
         pts_idx = sampling.generate_sample_index(3 * TB // 2, TN, 0.1)
@@ -1628,6 +1816,9 @@ def phase_train(report) -> None:
     print(f"  peak device memory of a training step {peak:.2f} GiB [{card}]")
     device_breakdown(lambda: trainer.train_step(batch, 1.0, trainer.generator),
                      card, runs=1, top=12, what="train step", ops=14)
+    repeat_step(trainer.model, trainer.opt, trainer.generator,
+                lambda: trainer.train_step(batch, 1.0, trainer.generator),
+                f"f32 Full ShapeNet step, {TB} x {TN}")
 
     # CUDA against the CPU plain composition at a reduced batch (2 unique x
     # 2 Siamese, N=2048, full widths, dropout off: the two devices' random
@@ -1853,6 +2044,74 @@ def time_fixed_batch(trainer, batch, n_unique, metric, what, gate=1.0):
     return step * 1e3
 
 
+def repeat_step(model, opt, gen, step, what) -> None:
+    """Two training steps from the same state (weights, BN statistics, Adam
+    moments and count, the dropout generator) on the same batch: every
+    loss ``step()`` returns (a dict of metrics or a loss), every gradient,
+    the BN running statistics and the updated weights bit for bit equal
+    (ROADMAP C16). A third step under ``torch.use_deterministic_algorithms(
+    True, warn_only=True)`` names any PyTorch operator of the step that
+    PyTorch knows to sum in a run-dependent order (cuBLAS's workspace note
+    aside: one stream runs the step). The state is restored afterwards."""
+    import warnings
+
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.ops import scatter
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    moments = [t.clone() for t in (*opt.mu, *opt.nu)]
+    count = opt.step
+    gstate = gen.get_state() if gen is not None else None
+
+    def restore():
+        model.load_state_dict(state)
+        for t, m in zip((*opt.mu, *opt.nu), moments):
+            t.copy_(m)
+        opt.step = count
+        if gen is not None:
+            gen.set_state(gstate)
+
+    def run():
+        restore()
+        out = step()
+        metrics = out if isinstance(out, dict) else {"loss": out}
+        res = {f"loss {k}": v.detach().clone() for k, v in metrics.items()
+               if torch.is_tensor(v)}
+        res.update({f"grad {n}": p.grad.clone()
+                    for n, p in model.named_parameters() if p.grad is not None})
+        res.update({f"state {n}": t.clone()
+                    for n, t in model.state_dict().items()})
+        return res
+
+    builds = scatter.inverse_graph.launches
+    first = run()
+    builds = scatter.inverse_graph.launches - builds
+    second = run()
+    differ = [k for k in first if not same_bits(first[k], second[k])]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have a deterministic")[0]
+                      for w in caught if "deterministic" in str(w.message)
+                      and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)})
+    restore()
+    print(f"  reproducible: {what}: two steps from the same state, "
+          f"{len(first) - len(differ)} of {len(first)} tensors (losses, "
+          f"gradients, BN statistics, weights) bit for bit equal"
+          + (f"; differ: {', '.join(differ[:6])}" if differ else "")
+          + f"; inverse graphs built {builds} in a step; "
+          f"operators flagged under deterministic mode: "
+          f"{', '.join(flagged) if flagged else 'none'}")
+    require(not differ, f"{what}: a step from the same state differs: "
+            f"{differ[:6]}")
+
+
 def check_full_epoch(res) -> None:
     """A training CLI's Full-style epoch (gate on) and evaluation: every
     loss finite, the smoothness loss positive, the eval metrics finite."""
@@ -1973,6 +2232,9 @@ def phase_full_train(report) -> None:
     MEASURED["shapenet_full_train_throughput"] = time_fixed_batch(
         trainer, batch, PB * PN, "shapenet_full_train_throughput",
         "bf16 Full train step")
+    repeat_step(trainer.model, trainer.opt, trainer.generator,
+                lambda: trainer.train_step(batch, 1.0, trainer.generator),
+                f"bf16 Full ShapeNet step, {PB} x 2 x {PN}")
 
     # the smoothness-loss block on its own, at one step's probabilities and
     # reused graph: the kernel route (B6 gather, B6 scatter) against the
@@ -2100,6 +2362,9 @@ def phase_s3dis_train(report) -> None:
     trainer, batch = full_trainer(ds, "s3dis")
     time_fixed_batch(trainer, batch, ub * RN, "s3dis_full_train_throughput",
                      "bf16 Full S3DIS train step")
+    repeat_step(trainer.model, trainer.opt, trainer.generator,
+                lambda: trainer.train_step(batch, 1.0, trainer.generator),
+                f"bf16 Full S3DIS step, {ub} x 2 x {RN}")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2336,9 +2601,10 @@ def fused_step_vs_cpu(model_cfg, sub, seed):
     of a model with seeded random weights on ``sub``, on the card and over
     the plain versions on the CPU, the CPU replaying the card's kNN indices
     and in-kernel BN moments (utils/replay.py; without the replay the
-    moments' atomic sums move later features by an ulp and the last
-    stage's kNN picks other near-tied neighbours, which moves gradients
-    discretely): what differs is each kernel's summation order. Each fused
+    moments, which the kernels sum in another fixed order than the CPU,
+    move later features by an ulp and the last stage's kNN picks other
+    near-tied neighbours, which moves gradients discretely): what differs
+    is each kernel's summation order, the same on every run (ROADMAP C16). Each fused
     block of the card's step is also rerun on its own on both devices at
     its recorded inputs and output cotangent (utils/replay.py::
     block_errors). Returns (loss rel err, logits rel RMS, {leaf: error},
@@ -2432,6 +2698,9 @@ def phase_static_graph(report) -> None:
     time_fixed_batch(trainer, batch, PB * PN,
                      "shapenet_full_train_throughput_static_graph",
                      "static bf16 Full ShapeNet train step")
+    repeat_step(trainer.model, trainer.opt, trainer.generator,
+                lambda: trainer.train_step(batch, 1.0, trainer.generator),
+                f"static bf16 Full ShapeNet step, {PB} x 2 x {PN}")
 
     # one static bf16 step of two distinct clouds on the card against the
     # plain versions on the CPU replaying the card's graph and moments,
@@ -2456,7 +2725,8 @@ def phase_static_graph(report) -> None:
 
     # f32 static: one B12 kNN per forward (the step adds the smoothness
     # loss's own kNN on xyz: the f32 route reuses no graph), the stages'
-    # gathers backward through B13; no fused kernel
+    # gathers and the smoothness loss's backward through B13; no fused
+    # kernel
     base = configs.shapenet_config()
     f32 = dataclasses.replace(
         base, model=dataclasses.replace(base.model, static_graph=True),
@@ -2473,7 +2743,7 @@ def phase_static_graph(report) -> None:
     print(f"  f32 static step, 8 x 2 x {PN} points: launches {launches}; "
           f"an eval forward: B12 {eval_launches['knn (B12)']}")
     check_launch_counts(launches, {
-        "knn (B12)": 2, "scatter_add (B13)": 3, "knn_edge (B1)": 0,
+        "knn (B12)": 2, "scatter_add (B13)": 4, "knn_edge (B1)": 0,
         "knn_edge_pre (B11)": 0}, "f32 static step")
     check_launch_counts(eval_launches, {"knn (B12)": 1}, "f32 static eval")
     require(all(bool(torch.isfinite(v)) for v in out.values()
@@ -2764,7 +3034,7 @@ def unfused_routes(card, lap):
     torch.cuda.synchronize()
     print(f"  bf16 unfused Full step, {PB} x 2 x {PN}: launches {launches}")
     check_launch_counts(launches, {
-        "gather_rows (B14)": 4, "scatter_add (B13)": 3, "knn (B12)": 1,
+        "gather_rows (B14)": 4, "scatter_add (B13)": 4, "knn (B12)": 1,
         "knn_edge (B1)": 0}, "bf16 unfused Full step")
     main_path.append(launches["gather_rows (B14)"])
     time_fixed_batch(trainer, batch, PB * PN,
@@ -2805,7 +3075,7 @@ def unfused_routes(card, lap):
         unfused_kernels(),
         lambda: trainer.train_step(batch, 1.0, trainer.generator))
     check_launch_counts(launches, {
-        "gather_rows (B14)": 0, "scatter_add (B13)": 3, "knn (B12)": 1,
+        "gather_rows (B14)": 0, "scatter_add (B13)": 4, "knn (B12)": 1,
         "knn_edge (B1)": 0}, "f32 unfused Full step")
     xla_ms = time_fixed_batch(trainer, batch, PB * PN,
                               "xla_everywhere_baseline", "f32 unfused Full step")
@@ -3188,7 +3458,8 @@ def phase_classifier(report) -> None:
         x = xs.to(getattr(torch, dtype))
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
-        step = cls_step_fn(model, x, labels, Adam(model.parameters()), gen)
+        opt = Adam(model.parameters())
+        step = cls_step_fn(model, x, labels, opt, gen)
         torch.cuda.reset_peak_memory_stats()
         loss0, launches = count_launches(kernels, step)
         check_launch_counts(launches, {n: want.get(n, 0) for n in launches},
@@ -3217,6 +3488,8 @@ def phase_classifier(report) -> None:
         print(f"  idle share of the step: 1 - busy {busy_ms:.3f} / {ms:.3f} ms "
               f"= {1 - busy_ms / ms:.3f}")
         if dtype == "bfloat16" and not kw.get("static_graph"):
+            repeat_step(model, opt, gen, step,
+                        f"bf16 fused classifier step, {CB} x {CN}")
             with torch.no_grad():
                 logits, ev = count_launches(kernels, lambda: model(x))
             want_ev = {"knn_edge (B1)": 5, "conv_zmax (B7)": 1,
@@ -3343,9 +3616,11 @@ KERNEL_GROUPS = (
     ("affinity_kernel", "B10"),
     ("gather_rows_kernel", "B14"),
     ("sqnorm_kernel", "B1/B9/B12/B15 norms"), ("wgather_pre", "B6 gather"),
-    ("scatter_add_weighted", "B6 scatter"),
-    ("scatter_add_kernel", "B13"), ("conv_minmax", "B2"),
-    ("conv_kmax_bwd", "B3"), ("scatter_bn_bwd", "B4"),
+    ("inverse_", "inverse graphs"), ("WVal", "B6 scatter"),
+    ("F32Val", "B13"), ("Bf16Val", "B4"), ("scatter_bn_du", "B4"),
+    ("sum_rows_kernel", "fixed-order sums"),
+    ("sum_cols_kernel", "fixed-order sums"), ("conv_minmax", "B2"),
+    ("conv_kmax_bwd", "B3"),
     ("conv_nmax", "B5 fwd"), ("nmax_bwd", "B5 bwd"), ("gemm", "cuBLAS GEMM"),
     ("reduce_kernel", "reductions"), ("elementwise", "elementwise"),
     ("index", "indexing"), ("sort", "sort"))

@@ -5,8 +5,8 @@ card lies from the same step over the plain versions on the CPU.
 
 At the published width (``ClsConfig()``, ``knn_fast``, dropout off) on
 chip_smoke.py's synthetic clouds of 1024 points, at 4, 8, 16 and 32
-clouds, some sizes twice (the card's atomic sums make every run another
-sample): chip_smoke.py's ``cls_step_vs_cpu`` (the CPU replaying the
+clouds, some sizes twice (the card's sums run in a fixed order, so a
+size read twice reads the same): chip_smoke.py's ``cls_step_vs_cpu`` (the CPU replaying the
 card's kNN indices, kernel moments and batch moments), printing the loss
 and logits errors, each fused block's worst error rerun on its own, the
 four worst gradient leaves, their median and the null-gradient biases.

@@ -77,6 +77,29 @@ def test_knn_edge_kernel(gen, cg, fast, n_valid):
     assert bool(((got[2] - mom).abs() <= 1e-5 * mags).all())
 
 
+@pytest.mark.parametrize("n,cg", [(40, 3), (3000, 124)])
+def test_knn_edge_moments_short_rows_and_cap(gen, n, cg):
+    """The moment sums sit over each warp's distance row once it is
+    selected: rows shorter than 2C (N=40, C=64) widen to hold them, and
+    the shape cap stays at Cg=124 for N=3000 (128 raises). Moments within
+    1e-5 of the magnitudes at the kernel's own indices, two launches bit
+    for bit equal."""
+    b, k, c = 1, 20, 64
+    g, v, u = randn(gen, (b, n, cg)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    got = edgeconv.knn_edge(g, v, u, k, fast=True)
+    again = edgeconv.knn_edge(g, v, u, k, fast=True)
+    assert all(same_bits(x, y) for x, y in zip(got, again))
+    bi = torch.arange(b, device="cuda")[:, None, None]
+    y = (v.float()[bi, got[0].long()] + u.float()[:, :, None, :]).to(
+        torch.bfloat16).float()
+    mom = torch.stack([y.sum((0, 1, 2)), (y ** 2).sum((0, 1, 2))])
+    mags = torch.stack([y.abs().sum((0, 1, 2)), mom[1]])
+    assert bool(((got[2] - mom).abs() <= 1e-5 * mags).all())
+    if n == 3000:
+        with pytest.raises(RuntimeError):
+            edgeconv.knn_edge(randn(gen, (b, n, cg + 4)), v, u, k, fast=True)
+
+
 @pytest.mark.parametrize("c1,c2,fold", [(64, 64, True), (64, 128, False),
                                         (128, 96, True)])
 def test_conv_zmax_kernel(gen, c1, c2, fold):
@@ -296,8 +319,9 @@ def test_knn_edge_kernel_nan_point(gen, fast):
 
 @pytest.mark.parametrize("c,n", [(64, 300), (3, 1000)])
 def test_scatter_add_kernel(gen, c, n):
-    """B13 against index_add_: f32 atomics sum in a run-dependent order,
-    so 1e-5 of the sum of magnitudes of each output element."""
+    """B13 against index_add_ within 1e-5 of the sum of magnitudes of each
+    output element (ROADMAP C4's tolerance, kept; the kernel now equals
+    the plain version bit for bit: test_scatter_add_kernel_bitwise)."""
     b, p, k = 2, 333, 20
     idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -339,9 +363,10 @@ def test_train_step_on_cuda_matches_cpu(gen):
                                   cfg=cfg, style="Full", bn_decay=0.5, gate=1.0)
         total.backward()
         if dev == "cuda":
-            # 5 graphs (transform, 3 stages, smooth loss); 3 gathers' backward
+            # 5 graphs (transform, 3 stages, smooth loss); the backward of
+            # the 3 stages' gathers and of the smooth loss's gather
             assert (knn.knn.launches - counts[0],
-                    scatter.scatter_add.launches - counts[1]) == (5, 3)
+                    scatter.scatter_add.launches - counts[1]) == (5, 4)
         outs.append(({k: float(v.detach()) for k, v in comps.items()},
                      {n: p.grad.cpu() for n, p in model.named_parameters()}))
     (want_c, want_g), (got_c, got_g) = outs
@@ -361,7 +386,7 @@ def ints(gen, shape, lo=-3, hi=4, dtype=torch.bfloat16):
 
 
 def within_sums(got, want, mags, tol=1e-5, atol=1e-6):
-    """f32 sums in another order (atomics): tol of the sum of magnitudes."""
+    """f32 sums in another order: tol of the sum of magnitudes."""
     assert bool(((got - want).abs() <= tol * mags + atol).all())
 
 
@@ -439,7 +464,8 @@ def test_conv_nmax_kernel(gen, c1, n, exact):
 def test_conv_kmax_bwd_kernel(gen, c2, exact):
     """B3 at an odd point count: exact inputs bitwise; random ones: dz
     within one bf16 ulp (f32 sums in another order, then one rounding),
-    the reductions 1e-5 of the sums of magnitudes (atomics)."""
+    the reductions 1e-5 of the sums of magnitudes (f32 sums in another
+    order)."""
     b, n, k, c1 = 2, 301, 20, 64
     if exact:
         y1, q = ints(gen, (b, n, k, c1)), ints(gen, (b, n, c2), dtype=torch.float32)
@@ -536,7 +562,9 @@ def test_conv_nmax_bwd_kernel(gen, c1, n, inputs):
 @pytest.mark.parametrize("sparse", [False, True])
 def test_scatter_bn_bwd_kernel(gen, sparse):
     """B4 against its plain version: du sums the same f32 dy in slot order
-    (1e-6 of the magnitudes), dv adds bf16(dy) with atomics (1e-5)."""
+    (1e-6 of the magnitudes), dv within 1e-5 (ROADMAP C4's tolerances, kept;
+    both are bit for bit the plain version's:
+    test_scatter_bn_bwd_kernel_bitwise)."""
     b, p, k, n, c = 2, 333, 20, 300, 64
     idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -565,8 +593,8 @@ def test_fused_train_step_on_cuda_matches_cpu(gen):
     """One Plain-style bf16 step of a narrow ShapeNet model through the
     fused blocks on the card (B1-B5) against the same step over the plain
     versions on the CPU, the CPU replaying the card's kNN indices and BN
-    moments (utils/replay.py: without it the moments' atomic sums move
-    later stages' neighbours among near-ties). Each fused block rerun on
+    moments (utils/replay.py: without it the moments, summed in another
+    order than the CPU's, move later stages' neighbours among near-ties). Each fused block rerun on
     its own at the step's inputs and cotangents: output and every input
     gradient within 1e-2 (worst reading on the card 5.4e-4). The whole
     step, where one-ulp differences grow in the batch-moment BNs: loss
@@ -693,7 +721,8 @@ def mag_sum_ok(got, want, mags, tol=1e-5):
 @pytest.mark.parametrize("c,n", [(51, 333), (14, 1001)])
 def test_scatter_add_weighted_kernel(gen, c, n):
     """B6's scatter against its plain version (index_add_ of the expanded
-    w * ct): f32 atomics add in a run-dependent order, so 1e-5 of the sum
+    w * ct) within ROADMAP C4's tolerance, kept (bit for bit:
+    test_scatter_add_weighted_kernel_bitwise): 1e-5 of the sum
     of magnitudes sum |w| |ct| of each output element."""
     b, p, k = 2, n, 10
     idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
@@ -915,7 +944,7 @@ def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
 
 def b11_check(got, want, nv):
     """y1 and the extrema bitwise, the moments within 1e-5 of the sum of
-    magnitudes (f32 atomics in another order, ROADMAP C4)."""
+    magnitudes (f32 sums in another order, ROADMAP C4)."""
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[2:], want[2:]):
         assert torch.equal(g, w)
@@ -972,7 +1001,8 @@ def test_knn_edge_pre_refuses(gen):
 def test_knn_edge_gather_pre_on_cuda_matches_cpu(gen):
     """B11's VJP: y1 bitwise, du within one bf16 ulp (f32 sums of the same
     bf16 dy_eff in another order), dv within 1e-5 of the scattered
-    magnitudes before its bf16 rounding plus one ulp (B13's atomics)."""
+    magnitudes before its bf16 rounding plus one ulp (B13 sums in another
+    order than the CPU's plain composition)."""
     b, n, k, c = 2, 333, 20, 64
     v, u = randn(gen, (b, n, c)), randn(gen, (b, n, c))
     idx = torch.randint(0, n, (b, n, k), generator=gen, device="cuda",
@@ -1227,8 +1257,9 @@ def test_unfused_bf16_step_on_cuda_matches_cpu(gen):
             total.backward()
         tape = tape or t
         if dev == "cuda":
+            # B13: the 3 stages' gathers and the smoothness loss's gather
             assert [fn.launches - b for fn, b in zip(kernels, before)] == [
-                4, 3, 1, 0]
+                4, 4, 1, 0]
         outs.append(({k: float(v.detach()) for k, v in comps.items()},
                      {n: p.grad.cpu() for n, p in model.named_parameters()}))
     (got_c, got_g), (want_c, want_g) = outs
@@ -1344,8 +1375,8 @@ def test_knn_gather_refuses(gen):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_knn_gather_vjp_on_cuda(gen, dtype):
     """B15's VJP: df is B13's scatter of the rows' cotangent along the
-    kernel's indices, within 1e-5 of the scattered magnitudes (f32
-    atomics) plus, in bf16, one ulp of the rounded sum; g gets none."""
+    kernel's indices, within 1e-5 of the scattered magnitudes (ROADMAP
+    C4) plus, in bf16, one ulp of the rounded sum; g gets none."""
     from weaksuppointcloudseg_tpu_torch.ops import knn_gather as kg
 
     b, n, k, c = 2, 333, 20, 64
@@ -1533,3 +1564,226 @@ def test_three_conv_stage_step_on_cuda_matches_cpu(gen):
     bad = {n: e for n, e in errs.items() if n != "agg_conv.beta"
            and e > (1.5e-2 if n in null else 0.4)}
     assert not bad, bad
+
+
+# ------------------------------------------- fixed-order sums (ROADMAP C16)
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN payloads aside (a NaN's payload is the
+    hardware's choice): the same NaN positions, every other element's bits
+    equal (-0 and +0 differ)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a).view(ints), torch.where(nb, 0, b).view(ints))
+
+
+def scatter_graph(gen, case, b, p, k, n):
+    """int32 [b, p, k] graphs: random targets, hubs (an all-equal cloud's
+    graph: every point's neighbours are rows 0..k-1, each of in-degree p),
+    or random targets with some outside [0, n)."""
+    if case == "hubs":
+        return torch.arange(k, dtype=torch.int32,
+                            device="cuda").expand(b, p, k).contiguous()
+    idx = torch.randint(0, n, (b, p, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if case == "outside":
+        drop = torch.rand((b, p, k), generator=gen, device="cuda") < 0.05
+        idx = torch.where(drop, n + 3, idx).int()
+    return idx
+
+
+@pytest.mark.parametrize("case,p,n", [
+    ("random", 333, 300), ("hubs", 2048, 2048), ("outside", 500, 777),
+    ("random", 1001, 4096), ("random", 40, 25000), ("random", 4096, 4096),
+    ("hubs", 4096, 4096), ("outside", 3500, 3000)])
+def test_inverse_graph_kernel(gen, case, p, n):
+    """The inverse-graph kernels equal their plain version on the CPU (a
+    stable sort): offsets and every segment's ascending sources. Both
+    routes: one block a cloud where its 20 p slots fit in shared memory,
+    chunks otherwise (20 p >= 65536, or N too large for the slots)."""
+    idx = scatter_graph(gen, case, 2, p, 20, n)
+    before = scatter.inverse_graph.launches
+    got = scatter.inverse_graph(idx, n)
+    assert scatter.inverse_graph.launches == before + 1
+    want = scatter.inverse_graph_ref(idx.cpu(), n)
+    assert torch.equal(got.offsets.cpu(), want.offsets)
+    assert torch.equal(got.src.cpu(), want.src)
+
+
+@pytest.mark.parametrize("case", ["random", "hubs", "nan", "outside"])
+@pytest.mark.parametrize("c", [1, 3, 9, 64, 130])
+def test_scatter_add_kernel_bitwise(gen, c, case):
+    """B13 equals its plain version run on the CPU bit for bit (both sum
+    each row in ascending slot order), and two launches give the same
+    bits; N != P; a NaN in g reaches its own row only."""
+    b, p, k, n = 2, 333, 20, 300
+    idx = scatter_graph(gen, case, b, p, k, n)
+    g = torch.randn((b, p, k, c), generator=gen, device="cuda") * torch.exp(
+        4 * torch.randn((b, p, k, 1), generator=gen, device="cuda"))
+    if case == "nan":
+        g[0, 5, 3, 0] = float("nan")
+    got = scatter.scatter_add(idx, g, n)
+    assert same_bits(got, scatter.scatter_add_ref(idx.cpu(), g.cpu(), n))
+    assert same_bits(got, scatter.scatter_add(idx, g, n))
+
+
+@pytest.mark.parametrize("case", ["random", "hubs"])
+@pytest.mark.parametrize("c", [64, 9])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_scatter_bn_bwd_kernel_bitwise(gen, sparse, c, case):
+    """B4's dv and du equal the plain version run on the CPU bit for bit;
+    two launches give the same bits."""
+    b, p, k, n = 2, 333, 20, 300
+    idx = scatter_graph(gen, case, b, p, k, n)
+    y = randn(gen, (b, p, k, c))
+    sv, al, be = (randn(gen, (c,), torch.float32) for _ in range(3))
+    if sparse:
+        big = (randn(gen, (b, p, c), torch.float32),
+               torch.randint(0, k, (b, p, c), generator=gen, device="cuda",
+                             dtype=torch.int32))
+        cpu_big = tuple(t.cpu() for t in big)
+    else:
+        big = randn(gen, (b, p, k, c))
+        cpu_big = big.cpu()
+    got = scatter.scatter_bn_bwd(idx, y, big, sv, al, be, n)
+    want = scatter.scatter_bn_bwd_ref(idx.cpu(), y.cpu(), cpu_big, sv.cpu(),
+                                      al.cpu(), be.cpu(), n)
+    again = scatter.scatter_bn_bwd(idx, y, big, sv, al, be, n)
+    for g_, w_, a_ in zip(got, want, again):
+        assert same_bits(g_, w_) and same_bits(g_, a_)
+
+
+@pytest.mark.parametrize("case", ["random", "hubs"])
+@pytest.mark.parametrize("c", [51, 14, 3])
+def test_scatter_add_weighted_kernel_bitwise(gen, c, case):
+    """B6's scatter equals its plain version run on the CPU bit for bit,
+    and two launches give the same bits."""
+    b, p, k, n = 2, 1001, 10, 1001
+    idx = scatter_graph(gen, case, b, p, k, n)
+    w = torch.rand((b, p, k), generator=gen, device="cuda")
+    ct = torch.randn((b, p, c), generator=gen, device="cuda")
+    got = scatter.scatter_add_weighted(idx, w, ct, n)
+    want = scatter.scatter_add_weighted_ref(idx.cpu(), w.cpu(), ct.cpu(), n)
+    assert same_bits(got, want)
+    assert same_bits(got, scatter.scatter_add_weighted(idx, w, ct, n))
+
+
+@pytest.mark.parametrize("case", ["random", "hubs"])
+def test_scatters_bitwise_on_chunked_inverse(gen, case):
+    """B13, B4 and B6's scatter over graphs of P*k >= 65536 slots (the
+    inverse's chunked route, as S3DIS's B4 at 4096 x 20) equal their plain
+    versions run on the CPU bit for bit."""
+    b, p, k, n, c = 1, 3500, 20, 3000, 9
+    idx = scatter_graph(gen, case, b, p, k, n)
+    g = torch.randn((b, p, k, c), generator=gen, device="cuda")
+    assert same_bits(scatter.scatter_add(idx, g, n),
+                     scatter.scatter_add_ref(idx.cpu(), g.cpu(), n))
+    y = randn(gen, (b, p, k, c))
+    dz = randn(gen, (b, p, k, c))
+    sv, al, be = (randn(gen, (c,), torch.float32) for _ in range(3))
+    got = scatter.scatter_bn_bwd(idx, y, dz, sv, al, be, n)
+    want = scatter.scatter_bn_bwd_ref(idx.cpu(), y.cpu(), dz.cpu(), sv.cpu(),
+                                      al.cpu(), be.cpu(), n)
+    assert all(same_bits(a, w) for a, w in zip(got, want))
+    w = torch.rand((b, p, k), generator=gen, device="cuda")
+    ct = torch.randn((b, p, c), generator=gen, device="cuda")
+    assert same_bits(scatter.scatter_add_weighted(idx, w, ct, n),
+                     scatter.scatter_add_weighted_ref(idx.cpu(), w.cpu(),
+                                                      ct.cpu(), n))
+
+
+def _fixed_order_outputs(gen, kernel):
+    """One launch's outputs of a kernel with fixed-order sums, on seeded
+    inputs (the generator is reseeded so two calls see the same inputs)."""
+    gen.manual_seed(7)
+    k = 20
+    if kernel in ("B1", "B11"):
+        g, v, u = (randn(gen, (3, 701, c)) for c in (3, 64, 64))
+        if kernel == "B1":
+            return edgeconv.knn_edge(g, v, u, k, fast=True, with_minmax=True,
+                                     n_valid=650)
+        idx = edgeconv.knn_edge(g, v, u, k, fast=True)[0]
+        return edgeconv.knn_edge_pre(idx, v, u, k, with_minmax=True,
+                                     n_valid=650)
+    if kernel == "B2":
+        sc, sh = randn(gen, (64,), torch.float32), randn(gen, (64,), torch.float32)
+        return conv_kmax.conv_minmax(randn(gen, (2, 333, k, 64)),
+                                     randn(gen, (64, 128), scale=0.2),
+                                     randn(gen, (128,), torch.float32), sc, sh)
+    if kernel == "B3":
+        c2 = 128
+        vec = [randn(gen, (64,), torch.float32) for _ in range(5)]
+        vec[4] = vec[4].abs() + 0.5
+        return conv_kmax.conv_kmax_bwd(
+            randn(gen, (2, 333, k, 64)), randn(gen, (2, 333, c2), torch.float32),
+            torch.randint(0, k, (2, 333, c2), generator=gen, device="cuda",
+                          dtype=torch.int32),
+            randn(gen, (c2, 64), scale=0.2), randn(gen, (64, 64), scale=0.05),
+            *vec)
+    h = randn(gen, (2, 1111, 192))
+    w = randn(gen, (192, 1024), scale=0.1)
+    bias = randn(gen, (1024,), torch.float32)
+    if kernel == "B5 forward":
+        return conv_kmax.conv_nmax(h, w, bias)
+    asel = torch.randint(0, 1111, (2, 1024), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return conv_kmax.conv_nmax_bwd(
+        h, randn(gen, (2, 1024), torch.float32), asel, w, bias,
+        *(randn(gen, (1024,), torch.float32, 0.01) for _ in range(2)))
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B11", "B2", "B3", "B5 forward",
+                                    "B5 backward"])
+def test_fixed_order_kernels_repeat(gen, kernel):
+    """Two launches of each kernel that sums across blocks (moments, T_sp,
+    G, S1, a1/a2, db, dW) give the same bits: the partials sum in block
+    order, with no float atomics."""
+    first = _fixed_order_outputs(gen, kernel)
+    second = _fixed_order_outputs(gen, kernel)
+    assert len(first) == len(second)
+    for a, b in zip(first, second):
+        assert same_bits(a, b)
+
+
+def test_bf16_full_step_repeats(gen):
+    """A bf16 Full-style step of a narrow ShapeNet model on the fused route
+    (B1-B6, the smoothness loss over the transform stage's graph, dropout
+    from a seeded generator) repeated from the same state: the losses,
+    every gradient and the BN running statistics bit for bit equal."""
+    from weaksuppointcloudseg_tpu_torch.train.steps import loss_fn
+
+    base = configs.shapenet_config()
+    model_cfg = dataclasses.replace(
+        base.model, num_classes=12, num_categories=4, global_channels=128,
+        category_embed_channels=8, head_channels=(32, 32, 16),
+        compute_dtype="bfloat16", knn_fast=True)
+    cfg = dataclasses.replace(base, model=model_cfg)
+    x = torch.rand((4, 512, 3), generator=gen, device="cuda")
+    batch = {"data": x,
+             "seg_onehot": torch.nn.functional.one_hot(torch.randint(
+                 0, 12, (4, 512), generator=gen, device="cuda"), 12).float(),
+             "mask": (torch.rand((4, 512), generator=gen, device="cuda")
+                      < 0.3).float(),
+             "cat_onehot": torch.eye(4, device="cuda")[[0, 0, 2, 2]]}
+    runs = []
+    for _ in range(2):
+        model = DGCNNSeg(model_cfg, seed=1).cuda()
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(3)
+        builds = scatter.inverse_graph.launches
+        total, comps, _ = loss_fn(model, batch, cfg=cfg, style="Full",
+                                  bn_decay=0.5, gate=1.0, generator=drop)
+        total.backward()
+        assert scatter.inverse_graph.launches - builds >= 1
+        runs.append({**{k: v.detach() for k, v in comps.items()},
+                     **{n: p.grad for n, p in model.named_parameters()},
+                     **dict(model.named_buffers())})
+    assert runs[0].keys() == runs[1].keys()
+    for name in runs[0]:
+        assert same_bits(runs[0][name], runs[1][name]), name

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from weaksuppointcloudseg_tpu_torch.ops import wgather
+from weaksuppointcloudseg_tpu_torch.ops import neighbors, wgather
 from weaksuppointcloudseg_tpu_torch.ops.knn import knn
 
 
@@ -63,8 +63,9 @@ def smooth_knn_laplacian(prob: torch.Tensor, x: torch.Tensor, *,
     idx, sqd = knn(x.detach().float().contiguous(), k, fast=fast,
                    with_values=True)
     w = torch.exp(-torch.clamp_min(sqd, 0.0) / gamma)
-    b = torch.arange(prob.shape[0], device=prob.device)[:, None, None]
-    p_nbr = prob[b, idx.long()]  # [B, N, k, K]
+    # [B, N, k, K]; the backward is kernel B13's fixed-order scatter (the
+    # backward of indexing adds with atomics in run-dependent order)
+    p_nbr = neighbors.gather_neighbors(prob, idx)
     diff2 = torch.mean(torch.square(prob[:, :, None, :] - p_nbr), dim=-1)
     return torch.mean(w * diff2)
 

@@ -29,23 +29,25 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "knn_edge_launch": [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P,
-                        P, P, P],
-    "knn_edge_pre_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P],
+                        P, P, P, LL, P],
+    "knn_edge_pre_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, LL,
+                            P],
     "conv_zmax_launch": [P, P, P, P, P, P, P, I, I, I, I, P, P],
     "conv_znmax_launch": [P, P, P, P, P, I, I, I, I, I, I, P, P, P],
     "knn_launch": [P, I, I, I, I, I, I, P, P, P, P],
-    "scatter_add_launch": [P, P, I, I, I, I, I, P, P],
-    "conv_minmax_launch": [P] * 5 + [I] * 3 + [P] * 6,
-    "conv_nmax_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P, P, P],
-    "conv_kmax_bwd_launch": [P] * 10 + [I] * 4 + [P] * 5,
-    "conv_nmax_bwd_launch": [P] * 7 + [I] * 5 + [P] * 5,
-    "scatter_bn_bwd_launch": [P] * 8 + [I] * 5 + [P] * 3,
+    "inverse_graph_launch": [P, I, I, I, I, P, P, P, LL, P],
+    "scatter_add_launch": [P, P, P, P, P, LL] + [I] * 5 + [P, P],
+    "conv_minmax_launch": [P] * 5 + [I] * 3 + [P] * 6 + [LL, P],
+    "conv_nmax_launch": [P, P, P] + [I] * 5 + [P] * 11,
+    "conv_kmax_bwd_launch": [P] * 10 + [I] * 4 + [P] * 3 + [LL, P],
+    "conv_nmax_bwd_launch": [P] * 7 + [I] * 5 + [P] * 5 + [LL, P],
+    "scatter_bn_bwd_launch": [P, P, P, P, LL] + [P] * 7 + [I] * 5 + [P] * 4,
     "wgather_pre_launch": [P, P, P, I, I, I, I, P, P],
-    "scatter_add_weighted_launch": [P, P, P, I, I, I, I, I, P, P],
+    "scatter_add_weighted_launch": [P] * 6 + [LL] + [I] * 5 + [P, P],
     "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
     "affinity_matvec_launch": [P, P, P, I, I, I, I, I, P, P],
     "gather_rows_launch": [P, P, I, I, I, I, I, P, P],

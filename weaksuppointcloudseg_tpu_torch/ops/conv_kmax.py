@@ -250,14 +250,17 @@ def conv_minmax(h1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     amax = torch.empty((b, n, c2), dtype=torch.int32, device=dev)
     ymin = torch.empty_like(ymax)
     amin = torch.empty_like(amax)
-    mom = torch.zeros((2, c2), dtype=torch.float32, device=dev)
+    mom = torch.empty((2, c2), dtype=torch.float32, device=dev)
+    # the blocks' partial moments (32 rows a block), summed in block order
+    part = torch.empty(2 * c2 * -(-(b * n) // 32), dtype=torch.float32,
+                       device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.conv_minmax_launch(
             h1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scale1.data_ptr(),
             shift1.data_ptr(), b * n, k, c2, ymax.data_ptr(),
             amax.data_ptr(), ymin.data_ptr(), amin.data_ptr(), mom.data_ptr(),
-            _build.stream_ptr(dev))
+            part.data_ptr(), part.numel(), _build.stream_ptr(dev))
     _build.check(code, "conv_minmax")
     conv_minmax.launches += 1
     return ymax, amax, ymin, amin, mom
@@ -289,8 +292,9 @@ def conv_nmax(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     nsplit = max(1, min(-(-n // _ZN_RT), -(-_TARGET_BLOCKS // (bsz * c_blocks))))
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     part = [torch.empty((bsz, nsplit, c2), **kw) for kw in (f32, i32, f32, i32)]
+    part.append(torch.empty((bsz, nsplit, 2, c2), **f32))  # split moments
     out = [torch.empty((bsz, c2), **kw) for kw in (f32, i32, f32, i32)]
-    mom = torch.zeros((2, c2), **f32)
+    mom = torch.empty((2, c2), **f32)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.conv_nmax_launch(
@@ -342,19 +346,26 @@ def conv_kmax_bwd(h1: torch.Tensor, q: torch.Tensor, asel: torch.Tensor,
         raise ValueError(f"conv_kmax_bwd: C1={c1}, C2={c2}: the kernel takes "
                          "C1=64 and C2 in (64, 128)")
     dz = torch.empty_like(h1)
-    tsp = torch.zeros((c1, c2), dtype=torch.float32, device=dev)
-    gram = torch.zeros((c1, c1), dtype=torch.float32, device=dev)
-    s1ab = torch.zeros((3, c1), dtype=torch.float32, device=dev)
+    width = c1 * c2 + c1 * c1 + 3 * c1  # T_sp, G, (S1, a1, a2)
+    sums = torch.empty(width, dtype=torch.float32, device=dev)
+    # one partial row per persistent block (one per SM, one per 8 points at
+    # most), summed in block order
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.empty(min(sms, -(-(b * n) // 8)) * width,
+                       dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.conv_kmax_bwd_launch(
             h1.data_ptr(), q.data_ptr(), asel.data_ptr(), w2t.data_ptr(),
             m.data_ptr(), row0.data_ptr(), scale1.data_ptr(), shift1.data_ptr(),
             mean1.data_ptr(), inv1.data_ptr(),
-            b * n, k, c1, c2, dz.data_ptr(), tsp.data_ptr(), gram.data_ptr(),
-            s1ab.data_ptr(), _build.stream_ptr(dev))
+            b * n, k, c1, c2, dz.data_ptr(), sums.data_ptr(), part.data_ptr(),
+            part.numel(), _build.stream_ptr(dev))
     _build.check(code, "conv_kmax_bwd")
     conv_kmax_bwd.launches += 1
+    tsp = sums[:c1 * c2].view(c1, c2)
+    gram = sums[c1 * c2:c1 * c2 + c1 * c1].view(c1, c1)
+    s1ab = sums[c1 * c2 + c1 * c1:].view(3, c1)
     return dz, tsp, gram, s1ab[0], s1ab[1:]
 
 
@@ -397,15 +408,19 @@ def conv_nmax_bwd(h: torch.Tensor, q: torch.Tensor, asel: torch.Tensor,
     ksplit = max(1, min(-(-rows // 64), -(-_BWD_TARGET_BLOCKS // tiles)))
     dyc = torch.empty((rows, c2), dtype=torch.bfloat16, device=dev)
     dh = torch.empty_like(h)
-    dw = torch.zeros((c1, c2), dtype=torch.float32, device=dev)
-    db = torch.zeros((c2,), dtype=torch.float32, device=dev)
+    dw = torch.empty((c1, c2), dtype=torch.float32, device=dev)
+    db = torch.empty((c2,), dtype=torch.float32, device=dev)
+    # partials: db per 64-row tile, dW per split, summed in index order
+    part = torch.empty(c2 * -(-rows // 64) + ksplit * c1 * c2,
+                       dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.conv_nmax_bwd_launch(
             h.data_ptr(), q.data_ptr(), asel.data_ptr(), w.data_ptr(),
             b.data_ptr(), alpha.data_ptr(), beta.data_ptr(), bsz, n, c1, c2,
             ksplit, dyc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), _build.stream_ptr(dev))
+            db.data_ptr(), part.data_ptr(), part.numel(),
+            _build.stream_ptr(dev))
     _build.check(code, "conv_nmax_bwd")
     conv_nmax_bwd.launches += 1
     return dh, dw, db

@@ -42,7 +42,7 @@
 //   and every thread reads them as float4 broadcasts, so the inner loop is
 //   one shared load per four FMAs. The epilogue sees each slot's y: B7
 //   keeps a running max of z, B2 the extrema, their slots and per-thread
-//   moment sums that go out with one f32 atomic per channel and block.
+//   moment sums, which each block writes to a workspace indexed by block.
 // - N splits (B8, B5): grid (C2 tiles, N splits, B); each thread owns one
 //   channel and RT rows of accumulators in registers, with the h tile
 //   stored channel-major in shared memory so four rows come in one float4
@@ -50,13 +50,18 @@
 //   kernel merges the splits in ascending order: B8 takes the max and
 //   applies relu (no atomics: deterministic); B5 keeps the split's lowest
 //   winning row and merges with strict compares, so the lowest row wins
-//   across splits too, and adds its moments with f32 atomics per block (so
-//   their last bits change from run to run).
+//   across splits too, and writes its moments to a workspace indexed by
+//   split.
+// The moments of B2 and B5 then sum over the blocks in an order fixed by
+// the block index (det_sum.cuh): no float atomics, the same bits from
+// launch to launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "det_sum.cuh"
 
 namespace {
 
@@ -174,11 +179,12 @@ __global__ void conv_minmax_kernel(
     const float* __restrict__ shift1, int rows, int k, int C2, int rt,
     __nv_bfloat16* __restrict__ ymax, int* __restrict__ amax,
     __nv_bfloat16* __restrict__ ymin, int* __restrict__ amin,
-    float* __restrict__ mom) {
+    float* __restrict__ part) {
   MinmaxEpi epi{0.f, 0.f, 0.f, 0.f, 0, 0, ymax, ymin, amax, amin};
   conv_krows<64>(h, w, b2, scale1, shift1, rows, k, C2, rt, epi);
-  atomicAdd(&mom[threadIdx.x], epi.psum);  // every block has rows
-  atomicAdd(&mom[C2 + threadIdx.x], epi.psq);
+  // part[element][block]; every block has rows
+  part[(size_t)threadIdx.x * gridDim.x + blockIdx.x] = epi.psum;
+  part[(size_t)(C2 + threadIdx.x) * gridDim.x + blockIdx.x] = epi.psq;
 }
 
 // rows of h1 staged per pass, keeping the tile within 48 KB (0: too wide)
@@ -306,7 +312,7 @@ __global__ void conv_nmax_partial_kernel(
     const float* __restrict__ b2, int N, int C1, int C2, int rows_per_split,
     float* __restrict__ pmax, int* __restrict__ pamax,
     float* __restrict__ pmin, int* __restrict__ pamin,
-    float* __restrict__ mom) {
+    float* __restrict__ pmom) {
   const int ch = blockIdx.x * NS_CT + threadIdx.x;
   const int r0 = blockIdx.y * rows_per_split;
   const int r1 = min(N, r0 + rows_per_split);
@@ -318,10 +324,10 @@ __global__ void conv_nmax_partial_kernel(
     pamax[o] = epi.amx;
     pmin[o] = epi.ymn;
     pamin[o] = epi.amn;
-    if (r0 < r1) {
-      atomicAdd(&mom[ch], epi.psum);
-      atomicAdd(&mom[C2 + ch], epi.psq);
-    }
+    // pmom[split of batch][2][C2] (an empty split adds zeros)
+    const size_t m = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 2 * C2;
+    pmom[m + ch] = epi.psum;
+    pmom[m + C2 + ch] = epi.psq;
   }
 }
 
@@ -380,27 +386,32 @@ extern "C" int conv_zmax_launch(const void* h, const void* w, const void* b2,
 
 // B2. h1 [rows, k, 64] bf16 (the raw first-conv output), w2 [64, C2] bf16,
 // b2 [C2] f32, scale1/shift1 [64] f32 (the BN1 fold). ymax/ymin [rows, C2]
-// bf16, amax/amin [rows, C2] int32, mom [2, C2] f32 (zeroed by the caller).
-// C2 a multiple of 32 up to 1024.
+// bf16, amax/amin [rows, C2] int32, mom [2, C2] f32 (written whole); part:
+// f32 scratch of part_elems >= 2 C2 ceil(rows / 32) floats. C2 a multiple
+// of 32 up to 1024.
 extern "C" int conv_minmax_launch(const void* h, const void* w, const void* b2,
                                   const void* scale1, const void* shift1,
                                   int rows, int k, int C2, void* ymax,
                                   void* amax, void* ymin, void* amin, void* mom,
+                                  void* part, long long part_elems,
                                   void* stream) {
   const int rt = krows_tile(k, 64);
+  const int blocks = (rows + KROWS_PER_BLOCK - 1) / KROWS_PER_BLOCK;
   if (C2 % 32 != 0 || C2 > 1024 || k < 1 || rt < 1 || scale1 == nullptr ||
-      shift1 == nullptr) {
+      shift1 == nullptr || part_elems < 2LL * C2 * blocks) {
     return (int)cudaErrorInvalidValue;
   }
-  const int blocks = (rows + KROWS_PER_BLOCK - 1) / KROWS_PER_BLOCK;
-  if (blocks == 0) return (int)cudaSuccess;
-  conv_minmax_kernel<<<blocks, C2, (size_t)rt * k * 64 * 4,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)b2,
-      (const float*)scale1, (const float*)shift1, rows, k, C2, rt,
-      (__nv_bfloat16*)ymax, (int*)amax, (__nv_bfloat16*)ymin, (int*)amin,
-      (float*)mom);
-  return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (blocks > 0) {
+    conv_minmax_kernel<<<blocks, C2, (size_t)rt * k * 64 * 4, s>>>(
+        (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)b2,
+        (const float*)scale1, (const float*)shift1, rows, k, C2, rt,
+        (__nv_bfloat16*)ymax, (int*)amax, (__nv_bfloat16*)ymin, (int*)amin,
+        (float*)part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)sum_cols((const float*)part, blocks, 2 * C2, (float*)mom, s);
 }
 
 // B8. h [B, N, C1] bf16, w [C1, C2] bf16, b/s2/t2 [C2] f32.
@@ -428,14 +439,14 @@ extern "C" int conv_znmax_launch(const void* h, const void* w, const void* b2,
 }
 
 // B5 forward. h [B, N, C1] bf16, w [C1, C2] bf16, b [C2] f32. pmax/pmin
-// [B, nsplit, C2] f32 and pamax/pamin int32 scratch; ymax/ymin [B, C2] f32,
-// amax/amin [B, C2] int32 (global row), mom [2, C2] f32 (zeroed by the
-// caller).
+// [B, nsplit, C2] f32 and pamax/pamin int32 scratch, pmom [B, nsplit, 2,
+// C2] f32 scratch; ymax/ymin [B, C2] f32, amax/amin [B, C2] int32 (global
+// row), mom [2, C2] f32 (written whole).
 extern "C" int conv_nmax_launch(const void* h, const void* w, const void* b,
                                 int B, int N, int C1, int C2, int nsplit,
                                 void* pmax, void* pamax, void* pmin,
-                                void* pamin, void* ymax, void* amax,
-                                void* ymin, void* amin, void* mom,
+                                void* pamin, void* pmom, void* ymax,
+                                void* amax, void* ymin, void* amin, void* mom,
                                 void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (nsplit < 1 || N < 1) return (int)cudaErrorInvalidValue;
@@ -447,7 +458,7 @@ extern "C" int conv_nmax_launch(const void* h, const void* w, const void* b,
   conv_nmax_partial_kernel<<<grid, NS_CT, smem, s>>>(
       (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)b, N, C1,
       C2, rows_per_split, (float*)pmax, (int*)pamax, (float*)pmin,
-      (int*)pamin, (float*)mom);
+      (int*)pamin, (float*)pmom);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int total = B * C2;
@@ -455,5 +466,7 @@ extern "C" int conv_nmax_launch(const void* h, const void* w, const void* b,
       (const float*)pmax, (const int*)pamax, (const float*)pmin,
       (const int*)pamin, nsplit, B, C2, (float*)ymax, (int*)amax,
       (float*)ymin, (int*)amin);
-  return (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return (int)sum_rows((const float*)pmom, B * nsplit, 2 * C2, (float*)mom, s);
 }

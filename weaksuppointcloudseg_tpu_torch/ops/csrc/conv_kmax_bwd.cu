@@ -22,12 +22,19 @@
 // shared dh tile by the thread that owns (point, channel), skipping the
 // zeros of Dq; the dense product h_j @ M runs from register tiles. T_sp, G,
 // S1 and (a1, a2) accumulate in registers across all of a block's tiles
-// and go out with one f32 atomic per element and block (a1/a2 after a warp
-// reduction), so their last bits change from run to run (ROADMAP C4).
+// (a1/a2 then through a fixed warp butterfly and the warps in order) and
+// each block writes its partial to a workspace row of its own; a second
+// launch adds the rows in block order (det_sum.cuh). No float atomics: the
+// tile loop is static (block b takes tiles b, b + grid, ...), so with the
+// grid fixed each partial, and each sum, is the same bit for bit from
+// launch to launch. The grid is the SM count, so the sums are fixed for
+// one card model; another SM count sums in another order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "det_sum.cuh"
 
 namespace {
 
@@ -39,6 +46,11 @@ constexpr int RPT = 4;        // rows per thread and pass of the dense product
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// floats of one block's partial: T_sp [C1][C2], G [C1][C1], S1, a1, a2
+__host__ __device__ constexpr int partial_width(int C2) {
+  return C1 * C2 + C1 * C1 + 3 * C1;
 }
 
 size_t smem_bytes(int k, int C2) {
@@ -53,8 +65,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kmax_bwd_kernel(
     const __nv_bfloat16* __restrict__ m, const float* __restrict__ row0,
     const float* __restrict__ scale1, const float* __restrict__ shift1,
     const float* __restrict__ mean1, const float* __restrict__ inv1, int P,
-    int k, __nv_bfloat16* __restrict__ dz, float* __restrict__ tsp,
-    float* __restrict__ gram, float* __restrict__ s1ab) {
+    int k, __nv_bfloat16* __restrict__ dz, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
   const int R = TP * k;
   float* hs = reinterpret_cast<float*>(smem4);  // [R][HS] h_j
@@ -221,18 +232,23 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kmax_bwd_kernel(
     }
   }
 
-  // the block's partial sums: one f32 atomic per element
+  // the block's partial sums, one workspace row [T_sp | G | S1 | a1 | a2]
+  // per block; each element has one owner
+  float* row = part + (size_t)blockIdx.x * partial_width(C2);
 #pragma unroll
-  for (int x = 0; x < NT; ++x) atomicAdd(&tsp[(ti0 + TSTEP * x) * C2 + tc], tacc[x]);
+  for (int x = 0; x < NT; ++x) row[(ti0 + TSTEP * x) * C2 + tc] = tacc[x];
+  float* grow = row + C1 * C2;
 #pragma unroll
   for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) atomicAdd(&gram[(gi + u) * C1 + gl + v], gacc[u][v]);
+    for (int v = 0; v < 4; ++v) grow[(gi + u) * C1 + gl + v] = gacc[u][v];
+  float* srow = grow + C1 * C1;  // S1, a1, a2
   if (t < 16) {
 #pragma unroll
-    for (int v = 0; v < 4; ++v) atomicAdd(&s1ab[gl + v], s1acc[v]);
+    for (int v = 0; v < 4; ++v) srow[gl + v] = s1acc[v];
   }
-  // lanes ig, ig+8, ig+16, ig+24 of a warp share channels
+  // lanes ig, ig+8, ig+16, ig+24 of a warp share channels: a fixed
+  // butterfly, then the warps in order
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
     for (int off = 8; off < 32; off <<= 1) {
@@ -240,12 +256,21 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kmax_bwd_kernel(
       a2acc[u] += __shfl_xor_sync(0xffffffffu, a2acc[u], off);
     }
   }
+  __syncthreads();  // every tile's reads of ms are done: reuse it
+  float* wab = ms;  // [THREADS / 32][2][C1]
+  const int warp = t >> 5;
   if ((t & 31) < 8) {
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      atomicAdd(&s1ab[C1 + ig * 8 + u], a1acc[u]);
-      atomicAdd(&s1ab[2 * C1 + ig * 8 + u], a2acc[u]);
+      wab[warp * 2 * C1 + ig * 8 + u] = a1acc[u];
+      wab[warp * 2 * C1 + C1 + ig * 8 + u] = a2acc[u];
     }
+  }
+  __syncthreads();
+  if (t < 2 * C1) {
+    float acc = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) acc = __fadd_rn(acc, wab[w * 2 * C1 + t]);
+    srow[C1 + t] = acc;
   }
 }
 
@@ -253,7 +278,7 @@ template <int C2>
 int launch(const void* y1, const void* q, const void* asel, const void* w2t,
            const void* m, const void* row0, const void* scale1,
            const void* shift1, const void* mean1, const void* inv1, int P,
-           int k, void* dz, void* tsp, void* gram, void* s1ab,
+           int k, void* dz, void* sums, void* part, long long part_elems,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(k, C2);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -269,14 +294,20 @@ int launch(const void* y1, const void* q, const void* asel, const void* w2t,
   if (err != cudaSuccess) return (int)err;
   const int tiles = (P + TP - 1) / TP;
   const int grid = tiles < sms ? tiles : sms;
-  if (grid == 0) return (int)cudaSuccess;
-  conv_kmax_bwd_kernel<C2><<<grid, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)y1, (const float*)q, (const int*)asel,
-      (const __nv_bfloat16*)w2t, (const __nv_bfloat16*)m, (const float*)row0,
-      (const float*)scale1, (const float*)shift1, (const float*)mean1,
-      (const float*)inv1, P, k, (__nv_bfloat16*)dz, (float*)tsp,
-      (float*)gram, (float*)s1ab);
-  return (int)cudaGetLastError();
+  if (part_elems < (long long)grid * partial_width(C2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (grid > 0) {
+    conv_kmax_bwd_kernel<C2><<<grid, THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)y1, (const float*)q, (const int*)asel,
+        (const __nv_bfloat16*)w2t, (const __nv_bfloat16*)m, (const float*)row0,
+        (const float*)scale1, (const float*)shift1, (const float*)mean1,
+        (const float*)inv1, P, k, (__nv_bfloat16*)dz, (float*)part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)sum_rows((const float*)part, grid, partial_width(C2),
+                       (float*)sums, stream);
 }
 
 }  // namespace
@@ -284,26 +315,29 @@ int launch(const void* y1, const void* q, const void* asel, const void* w2t,
 // B3. y1 [P, k, 64] bf16 (the raw first-conv output), q [P, C2] f32, asel
 // [P, C2] int32, w2t [C2, 64] bf16, m [64, 64] bf16, row0 [64] f32,
 // scale1/shift1/mean1/inv1 [64] f32 (the BN1 fold). dz [P, k, 64] bf16;
-// tsp [64, C2], gram [64, 64] and s1ab [3, 64] (S1, a1, a2) f32, zeroed by
-// the caller. C1 must be 64, C2 64 or 128.
+// sums: f32 [64 C2 + 64 * 64 + 3 * 64], T_sp [64, C2], G [64, 64] and
+// (S1, a1, a2) [3, 64] in that order, written whole; part: f32 scratch of
+// part_elems >= min(SMs, ceil(P / 8)) rows of that width. C1 must be 64,
+// C2 64 or 128.
 extern "C" int conv_kmax_bwd_launch(const void* y1, const void* q,
                                     const void* asel, const void* w2t,
                                     const void* m, const void* row0,
                                     const void* scale1, const void* shift1,
                                     const void* mean1, const void* inv1, int P,
-                                    int k, int c1, int c2, void* dz, void* tsp,
-                                    void* gram, void* s1ab, void* stream) {
+                                    int k, int c1, int c2, void* dz, void* sums,
+                                    void* part, long long part_elems,
+                                    void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (c1 != C1 || k < 1 || !scale1 || !shift1 || !mean1 || !inv1) {
     return (int)cudaErrorInvalidValue;
   }
   if (c2 == 64) {
     return launch<64>(y1, q, asel, w2t, m, row0, scale1, shift1, mean1, inv1,
-                      P, k, dz, tsp, gram, s1ab, s);
+                      P, k, dz, sums, part, part_elems, s);
   }
   if (c2 == 128) {
     return launch<128>(y1, q, asel, w2t, m, row0, scale1, shift1, mean1, inv1,
-                       P, k, dz, tsp, gram, s1ab, s);
+                       P, k, dz, sums, part, part_elems, s);
   }
   return (int)cudaErrorInvalidValue;
 }

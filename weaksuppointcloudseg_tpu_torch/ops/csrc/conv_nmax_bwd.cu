@@ -15,11 +15,14 @@
 // Design, simple first: three kernels built on WMMA 16x16x16 bf16
 // fragments, 64x64 block tiles of four warps (32x32 each), operands staged
 // in shared memory with the ragged row edge zero-filled.
-//   1. dy: y tile = h tile @ W tile, then dy, db (one f32 atomic per column
-//      and block) and bf16(dy) into a [B*N, C2] bf16 scratch;
+//   1. dy: y tile = h tile @ W tile, then dy, db and bf16(dy) into a
+//      [B*N, C2] bf16 scratch; each block writes its column sums of dy to a
+//      workspace indexed by block;
 //   2. dh = scratch @ W^T over C2 in chunks of 64;
-//   3. dW = h^T @ scratch, split over the rows; each split adds its tile
-//      with f32 atomics.
+//   3. dW = h^T @ scratch, split over the rows; each split writes its tile
+//      to a workspace indexed by split.
+// db and dW then sum their partials in block (split) order (det_sum.cuh):
+// no float atomics, the same bits from launch to launch.
 // The TPU kernel keeps bf16(dy) in VMEM; here it goes through memory once
 // (134 MB at the path shape, written once, read twice).
 
@@ -27,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "det_sum.cuh"
 
 namespace {
 
@@ -84,10 +89,11 @@ __global__ void __launch_bounds__(THREADS) nmax_bwd_dy_kernel(
     const float* __restrict__ b, const float* __restrict__ q,
     const int* __restrict__ asel, const float* __restrict__ alpha,
     const float* __restrict__ beta, int rows, int N, int C1, int C2,
-    bf16* __restrict__ dyc, float* __restrict__ db) {
+    bf16* __restrict__ dyc, float* __restrict__ pdb) {
   __shared__ __align__(128) bf16 as[BM * LDK];
   __shared__ __align__(128) bf16 bs[KC * LDK];
   __shared__ __align__(128) float cs[BM * LDC];
+  __shared__ float half_db[THREADS];
   const int r0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
   FragC acc[2][2];
@@ -128,7 +134,14 @@ __global__ void __launch_bounds__(THREADS) nmax_bwd_dy_kernel(
     dbs += dy;
     dyc[(size_t)row * C2 + c] = __float2bfloat16_rn(dy);
   }
-  atomicAdd(&db[c], dbs);
+  // two threads per column: the lower rows' half, then the other, into
+  // pdb[column][row tile]
+  half_db[threadIdx.x] = dbs;
+  __syncthreads();
+  if (threadIdx.x < BN) {
+    pdb[(size_t)c * gridDim.x + blockIdx.x] =
+        __fadd_rn(half_db[threadIdx.x], half_db[threadIdx.x + BN]);
+  }
 }
 
 // 2. dh = dyc @ W^T for rows [r0, r0+64) and input channels [n0, n0+64)
@@ -176,7 +189,7 @@ __global__ void __launch_bounds__(THREADS) nmax_bwd_dh_kernel(
 // 3. dW[m0.., n0..] += h[rows of the split]^T @ dyc[rows of the split]
 __global__ void __launch_bounds__(THREADS) nmax_bwd_dw_kernel(
     const bf16* __restrict__ h, const bf16* __restrict__ dyc, int rows,
-    int C1, int C2, int rows_per_split, float* __restrict__ dw) {
+    int C1, int C2, int rows_per_split, float* __restrict__ pdw) {
   __shared__ __align__(128) bf16 as[KC * LDK];  // h chunk [row][c1]
   __shared__ __align__(128) bf16 bs[KC * LDK];  // dyc chunk [row][c2]
   __shared__ __align__(128) float cs[BM * LDC];
@@ -210,10 +223,11 @@ __global__ void __launch_bounds__(THREADS) nmax_bwd_dw_kernel(
   }
   store(cs, acc, wm, wn);
   __syncthreads();
-  if (ra >= rb) return;
+  // pdw[split][C1][C2] (an empty split writes zeros)
+  float* out = pdw + (size_t)blockIdx.z * C1 * C2;
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
     const int r = e / BN, cl = e % BN;
-    atomicAdd(&dw[(size_t)(m0 + r) * C2 + n0 + cl], cs[r * LDC + cl]);
+    out[(size_t)(m0 + r) * C2 + n0 + cl] = cs[r * LDC + cl];
   }
 }
 
@@ -221,23 +235,34 @@ __global__ void __launch_bounds__(THREADS) nmax_bwd_dw_kernel(
 
 // B5 backward. h [B, N, C1] bf16, q [B, C2] f32, asel [B, C2] int32,
 // w [C1, C2] bf16, b/alpha/beta [C2] f32. dyc [B*N, C2] bf16 scratch;
-// dh [B, N, C1] bf16; dw [C1, C2] and db [C2] f32, zeroed by the caller.
+// dh [B, N, C1] bf16; dw [C1, C2] and db [C2] f32, written whole; part:
+// f32 scratch of part_elems >= C2 ceil(B N / 64) + ksplit C1 C2 floats.
 // C1 and C2 must be multiples of 64; every pointer 16-byte aligned.
 extern "C" int conv_nmax_bwd_launch(const void* h, const void* q,
                                     const void* asel, const void* w,
                                     const void* b, const void* alpha,
                                     const void* beta, int B, int N, int C1,
                                     int C2, int ksplit, void* dyc, void* dh,
-                                    void* dw, void* db, void* stream) {
+                                    void* dw, void* db, void* part,
+                                    long long part_elems, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (C1 % 64 != 0 || C2 % 64 != 0 || ksplit < 1) return (int)cudaErrorInvalidValue;
   const int rows = B * N;
-  if (rows == 0) return (int)cudaSuccess;
   const int rtiles = (rows + BM - 1) / BM;
+  if (C1 % 64 != 0 || C2 % 64 != 0 || ksplit < 1 ||
+      part_elems < (long long)C2 * rtiles + (long long)ksplit * C1 * C2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 0) {  // no rows: zero sums
+    cudaError_t err = cudaMemsetAsync(dw, 0, sizeof(float) * C1 * C2, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(db, 0, sizeof(float) * C2, s);
+    return (int)err;
+  }
+  float* pdb = (float*)part;
+  float* pdw = pdb + (size_t)C2 * rtiles;
   nmax_bwd_dy_kernel<<<dim3(rtiles, C2 / BN), THREADS, 0, s>>>(
       (const bf16*)h, (const bf16*)w, (const float*)b, (const float*)q,
       (const int*)asel, (const float*)alpha, (const float*)beta, rows, N, C1,
-      C2, (bf16*)dyc, (float*)db);
+      C2, (bf16*)dyc, pdb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nmax_bwd_dh_kernel<<<dim3(rtiles, C1 / BN), THREADS, 0, s>>>(
@@ -246,6 +271,10 @@ extern "C" int conv_nmax_bwd_launch(const void* h, const void* q,
   if (err != cudaSuccess) return (int)err;
   const int per = ((rows + ksplit - 1) / ksplit + KC - 1) / KC * KC;
   nmax_bwd_dw_kernel<<<dim3(C2 / BN, C1 / BM, ksplit), THREADS, 0, s>>>(
-      (const bf16*)h, (const bf16*)dyc, rows, C1, C2, per, (float*)dw);
-  return (int)cudaGetLastError();
+      (const bf16*)h, (const bf16*)dyc, rows, C1, C2, per, pdw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = sum_cols(pdb, rtiles, C2, (float*)db, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_rows(pdw, ksplit, C1 * C2, (float*)dw, s);
 }

@@ -8,7 +8,7 @@
 // min over the packed int32 "distance bits | column"), and writes
 //   idx[b,i,j]   the selected columns,
 //   y1[b,i,j,:]  = bf16(f32(v[b,idx_j,:]) + f32(u[b,i,:])),
-//   mom[0/1,:]   += sum / sum of squares of y1 over rows i < n_valid,
+//   mom[0/1,:]   = sum / sum of squares of y1 over rows i < n_valid,
 // and optionally the per-channel max/min of y1 over j with the first
 // winning slot (with_minmax) and the selected distances (with_values).
 //
@@ -37,15 +37,22 @@
 // subset - k rounds cost k shuffles plus k rescans of N/32 entries.
 // The y1 pass gives each lane the channels lane, lane+32, ... of its row,
 // so gathers of v rows and y1 stores are coalesced, and the running
-// max/min and moment sums stay in registers. Moments reduce per block in
-// shared memory, then atomically into mom: the summation order is not
-// fixed, which the tests' tolerance states.
+// max/min and moment sums stay in registers. Moments sum in a fixed order
+// (det_sum.cuh): each warp writes its row's sums over the start of its own
+// distance row, which its selection no longer reads (rows are max(N, 2C)
+// keys long, so no shared memory is added where N >= 2C), the block adds
+// them in warp (row) order into a workspace indexed by block, and a second
+// launch adds the blocks in index order. No float atomics: the moments are
+// the same bit for bit from launch to launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "det_sum.cuh"
 #include "select.cuh"
 
 namespace {
@@ -137,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
     const __nv_bfloat16* __restrict__ u, const float* __restrict__ norms,
     int N, int Cg, int stride, int C, int k, int n_valid, int idx_mask,
     int32_t* __restrict__ idx_out, __nv_bfloat16* __restrict__ y_out,
-    float* __restrict__ mom, __nv_bfloat16* __restrict__ ymax_out,
+    float* __restrict__ part, __nv_bfloat16* __restrict__ ymax_out,
     int32_t* __restrict__ amax_out, __nv_bfloat16* __restrict__ ymin_out,
     int32_t* __restrict__ amin_out, float* __restrict__ sqd_out) {
   extern __shared__ float4 smem4[];
@@ -148,14 +155,14 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
 
   float* gs = reinterpret_cast<float*>(smem4);  // [TJ][stride] column tile
   float* gr = gs + TJ * stride;                 // [ROWS][stride] query rows
-  int* dist = reinterpret_cast<int*>(gr + ROWS * stride);  // [ROWS][N] keys
-  float* msum = reinterpret_cast<float*>(dist + (size_t)ROWS * N);  // [2][C] moments
-  int* sel = reinterpret_cast<int*>(msum + 2 * C);  // [ROWS][k]
+  // [ROWS][D] keys (the first N used), then each row's 2C moment sums
+  const int D = max(N, 2 * C);
+  int* dist = reinterpret_cast<int*>(gr + ROWS * stride);
+  int* sel = dist + (size_t)ROWS * D;  // [ROWS][k]
 
   const __nv_bfloat16* gb = g + (size_t)b * N * Cg;
   const float* nb = norms + (size_t)b * N;
   stage_rows(gb, row0, ROWS, N, Cg, stride, gr);
-  for (int t = threadIdx.x; t < 2 * C; t += THREADS) msum[t] = 0.f;
 
   // ---- distance rows (the B x N x N matrix stays in shared memory) ----
   const int jj = threadIdx.x;  // this thread's tile column, against all rows
@@ -206,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
     for (int q = 0; q < ROWS; ++q) {
       float d = __fadd_rn(__fmul_rn(-2.f, acc[q]), rn[q]);
       d = __fadd_rn(d, cn);
-      int* slot = dist + (size_t)q * N + j;
+      int* slot = dist + (size_t)q * D + j;
       if (FAST) {
         *slot = j < n_valid ? fast_key(d, j, idx_mask) : (FAST_PAD | j);
       } else {
@@ -218,8 +225,10 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
 
   // ---- k selection rounds, one warp per row ----
   const int row = row0 + warp;
+  // this warp's moment sums, over its distance row once selected
+  float* wsum = reinterpret_cast<float*>(dist + (size_t)warp * D);
   if (row < N) {
-    int* drow = dist + (size_t)warp * N;
+    int* drow = dist + (size_t)warp * D;
     int lk, lc;
     lane_min(drow, N, lane, lk, lc);
     const size_t ko = ((size_t)b * N + row) * k;
@@ -270,15 +279,22 @@ __global__ void __launch_bounds__(THREADS) knn_edge_kernel(
         ymin_out[urow + c] = __float2bfloat16_rn(mn);
         amin_out[urow + c] = an;
       }
-      if (valid) {
-        atomicAdd(&msum[c], s1);
-        atomicAdd(&msum[C + c], s2);
-      }
+      wsum[c] = valid ? s1 : 0.f;  // this lane alone owns channel c
+      wsum[C + c] = valid ? s2 : 0.f;
     }
+  } else {  // a row past N adds nothing
+    for (int c = lane; c < 2 * C; c += 32) wsum[c] = 0.f;
   }
   __syncthreads();
+  // the block's partial: rows in order, into part[element][block]
+  const int nblk = gridDim.x * gridDim.y;
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
   for (int t = threadIdx.x; t < 2 * C; t += THREADS) {
-    atomicAdd(&mom[t], msum[t]);
+    float s = 0.f;
+    for (int w = 0; w < ROWS; ++w) {
+      s = __fadd_rn(s, reinterpret_cast<const float*>(dist)[(size_t)w * D + t]);
+    }
+    part[(size_t)t * nblk + blk] = s;
   }
 }
 
@@ -287,7 +303,7 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s,
                    const __nv_bfloat16* g, const __nv_bfloat16* v,
                    const __nv_bfloat16* u, const float* norms, int N, int Cg,
                    int stride, int C, int k, int n_valid, int idx_mask,
-                   void* idx, void* y, void* mom, void* ymax, void* amax,
+                   void* idx, void* y, void* part, void* ymax, void* amax,
                    void* ymin, void* amin, void* sqd) {
   cudaError_t err = cudaFuncSetAttribute(
       knn_edge_kernel<FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -295,26 +311,33 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s,
   if (err != cudaSuccess) return err;
   knn_edge_kernel<FAST><<<grid, THREADS, smem, s>>>(
       g, v, u, norms, N, Cg, stride, C, k, n_valid, idx_mask, (int32_t*)idx,
-      (__nv_bfloat16*)y, (float*)mom, (__nv_bfloat16*)ymax, (int32_t*)amax,
+      (__nv_bfloat16*)y, (float*)part, (__nv_bfloat16*)ymax, (int32_t*)amax,
       (__nv_bfloat16*)ymin, (int32_t*)amin, (float*)sqd);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// g [B,N,Cg], v/u [B,N,C] bf16; norms: [B,N] f32 scratch. Outputs as in
-// the header; ymax/amax/ymin/amin and sqd may be null. Returns a
-// cudaError_t (cudaErrorInvalidValue when the shape exceeds shared memory).
+// g [B,N,Cg], v/u [B,N,C] bf16; norms: [B,N] f32 scratch; part: f32
+// scratch of part_elems >= 2C * B * ceil(N / 8) floats (the blocks'
+// partial moments). Outputs as in the header (mom written whole);
+// ymax/amax/ymin/amin and sqd may be null. Returns a cudaError_t
+// (cudaErrorInvalidValue when the shape exceeds shared memory or part).
 extern "C" int knn_edge_launch(const void* g, const void* v, const void* u,
                                int B, int N, int Cg, int C, int k, int fast,
                                int n_valid, int idx_bits, void* norms,
                                void* idx, void* y, void* mom, void* ymax,
                                void* amax, void* ymin, void* amin, void* sqd,
+                               void* part, long long part_elems,
                                void* stream) {
   const int stride = (Cg + 3) / 4 * 4 + 4;  // = 4 mod 32 when Cg % 32 == 0
   const size_t smem = 4 * ((size_t)TJ * stride + (size_t)ROWS * stride +
-                           (size_t)ROWS * N + 2 * (size_t)C + (size_t)ROWS * k);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+                           (size_t)ROWS * std::max(N, 2 * C) +
+                           (size_t)ROWS * k);
+  const int nblk = (N + ROWS - 1) / ROWS * B;
+  if (smem > 227 * 1024 || part_elems < 2LL * C * nblk) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int points = B * N;
   sqnorm_kernel<<<(points + 255) / 256, 256, 0, s>>>(
@@ -326,10 +349,11 @@ extern "C" int knn_edge_launch(const void* g, const void* v, const void* u,
   err = fast ? launch<true>(grid, smem, s, (const __nv_bfloat16*)g,
                             (const __nv_bfloat16*)v, (const __nv_bfloat16*)u,
                             (const float*)norms, N, Cg, stride, C, k, n_valid,
-                            idx_mask, idx, y, mom, ymax, amax, ymin, amin, sqd)
+                            idx_mask, idx, y, part, ymax, amax, ymin, amin, sqd)
              : launch<false>(grid, smem, s, (const __nv_bfloat16*)g,
                              (const __nv_bfloat16*)v, (const __nv_bfloat16*)u,
                              (const float*)norms, N, Cg, stride, C, k, n_valid,
-                             idx_mask, idx, y, mom, ymax, amax, ymin, amin, sqd);
-  return (int)err;
+                             idx_mask, idx, y, part, ymax, amax, ymin, amin, sqd);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_cols((const float*)part, nblk, 2 * C, (float*)mom, s);
 }

@@ -5,12 +5,12 @@
 // Replaces weaksuppointcloudseg_tpu/ops/edgeconv_pallas.py::_knn_edge_pre_impl
 // (body _kernel_edge_pre). For every point i of every cloud b it writes
 //   y1[b,i,j,:]  = bf16(f32(v[b,idx[b,i,j],:]) + f32(u[b,i,:])),
-//   mom[0/1,:]  += sum / sum of squares of y1 over rows i < n_valid,
+//   mom[0/1,:]  = sum / sum of squares of y1 over rows i < n_valid,
 // zero y1 on rows i >= n_valid, and optionally (with_minmax) the
 // per-channel max/min of y1 over j with the first winning slot. The add
 // and the single rounding are B1's (knn_edge.cu), so given B1's own idx
-// the outputs are B1's bit for bit; the moments are f32 atomics, whose
-// order changes from run to run.
+// the outputs are B1's bit for bit; the moments sum in a fixed order
+// (det_sum.cuh), the same bit for bit from launch to launch.
 //
 // What bounds it on an H100: bytes. At the ShapeNet training shape (B=64,
 // N=2048, k=20, C=64) it must write y1 (336 MB of bf16) and read idx,
@@ -25,13 +25,17 @@
 // adjacent channels (V=2 when C is even: bf16x2 loads of v and u and
 // stores of y1, so a warp stores 128 contiguous bytes per slot) and walks
 // the k slots in order, keeping the running extrema and the moment sums in
-// registers. Moments reduce per block in shared memory, then atomically
-// into mom (the rows per block cut the global atomics). Staging v in
-// shared memory and TMA stores are later work.
+// registers. Moments: each warp adds its rows' sums, in row order, into its
+// own shared slot; the block adds the slots in warp order into a workspace
+// indexed by block, and a second launch adds the blocks in index order
+// (det_sum.cuh; no float atomics). Staging v in shared memory and TMA
+// stores are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "det_sum.cuh"
 
 namespace {
 
@@ -67,16 +71,16 @@ template <int V>
 __global__ void __launch_bounds__(THREADS) knn_edge_pre_kernel(
     const int32_t* __restrict__ idx, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ u, int N, int C, int k, int n_valid,
-    __nv_bfloat16* __restrict__ y_out, float* __restrict__ mom,
+    __nv_bfloat16* __restrict__ y_out, float* __restrict__ part,
     __nv_bfloat16* __restrict__ ymax_out, int32_t* __restrict__ amax_out,
     __nv_bfloat16* __restrict__ ymin_out, int32_t* __restrict__ amin_out) {
   extern __shared__ float smem[];
-  float* msum = smem;                              // [2][C] block moments
-  int* sel = reinterpret_cast<int*>(msum + 2 * C);  // [WARPS][k] indices
+  float* wsum = smem;                                      // [WARPS][2C]
+  int* sel = reinterpret_cast<int*>(wsum + WARPS * 2 * C);  // [WARPS][k]
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int t = threadIdx.x; t < 2 * C; t += THREADS) msum[t] = 0.f;
+  for (int t = threadIdx.x; t < WARPS * 2 * C; t += THREADS) wsum[t] = 0.f;
   __syncthreads();
 
   int* wsel = sel + warp * k;
@@ -130,33 +134,43 @@ __global__ void __launch_bounds__(THREADS) knn_edge_pre_kernel(
           amin_out[urow + c + q] = an[q];
         }
       }
-      if (valid) {
+      if (valid) {  // this lane alone owns channels c.. of the warp's slot
+        float* ws = wsum + warp * 2 * C;
 #pragma unroll
         for (int q = 0; q < V; ++q) {
-          atomicAdd(&msum[c + q], s1[q]);
-          atomicAdd(&msum[C + c + q], s2[q]);
+          ws[c + q] = __fadd_rn(ws[c + q], s1[q]);
+          ws[C + c + q] = __fadd_rn(ws[C + c + q], s2[q]);
         }
       }
     }
   }
   __syncthreads();
+  // the block's partial: warps in order, into part[element][block]
+  const int nblk = gridDim.x * gridDim.y;
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
   for (int t = threadIdx.x; t < 2 * C; t += THREADS) {
-    atomicAdd(&mom[t], msum[t]);
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, wsum[w * 2 * C + t]);
+    part[(size_t)t * nblk + blk] = s;
   }
 }
 
 }  // namespace
 
 // idx int32 [B,N,k]; v/u bf16 [B,N,C]; y bf16 [B,N,k,C]; mom f32 [2,C]
-// (zeroed by the caller); ymax/amax/ymin/amin [B,N,C] or all null. Returns
-// a cudaError_t (cudaErrorInvalidValue for a shape the launch cannot take).
+// (written whole); ymax/amax/ymin/amin [B,N,C] or all null; part: f32
+// scratch of part_elems >= 2C * B * ceil(N / 32) floats. Returns a
+// cudaError_t (cudaErrorInvalidValue for a shape the launch cannot take).
 extern "C" int knn_edge_pre_launch(const void* idx, const void* v,
                                    const void* u, int B, int N, int C, int k,
                                    int n_valid, void* y, void* mom, void* ymax,
                                    void* amax, void* ymin, void* amin,
+                                   void* part, long long part_elems,
                                    void* stream) {
-  const size_t smem = 4 * (2 * (size_t)C + (size_t)WARPS * k);
-  if (B < 1 || B > 65535 || N < 1 || C < 1 || k < 1 || smem > 48 * 1024) {
+  const size_t smem = 4 * ((size_t)WARPS * 2 * C + (size_t)WARPS * k);
+  const int nblk = (N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK * B;
+  if (B < 1 || B > 65535 || N < 1 || C < 1 || k < 1 || smem > 48 * 1024 ||
+      part_elems < 2LL * C * nblk) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -164,15 +178,17 @@ extern "C" int knn_edge_pre_launch(const void* idx, const void* v,
   if (C % 2 == 0) {
     knn_edge_pre_kernel<2><<<grid, THREADS, smem, s>>>(
         (const int32_t*)idx, (const __nv_bfloat16*)v, (const __nv_bfloat16*)u,
-        N, C, k, n_valid, (__nv_bfloat16*)y, (float*)mom,
+        N, C, k, n_valid, (__nv_bfloat16*)y, (float*)part,
         (__nv_bfloat16*)ymax, (int32_t*)amax, (__nv_bfloat16*)ymin,
         (int32_t*)amin);
   } else {
     knn_edge_pre_kernel<1><<<grid, THREADS, smem, s>>>(
         (const int32_t*)idx, (const __nv_bfloat16*)v, (const __nv_bfloat16*)u,
-        N, C, k, n_valid, (__nv_bfloat16*)y, (float*)mom,
+        N, C, k, n_valid, (__nv_bfloat16*)y, (float*)part,
         (__nv_bfloat16*)ymax, (int32_t*)amax, (__nv_bfloat16*)ymin,
         (int32_t*)amin);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_cols((const float*)part, nblk, 2 * C, (float*)mom, s);
 }

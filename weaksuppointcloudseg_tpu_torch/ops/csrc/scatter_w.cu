@@ -9,65 +9,60 @@
 //
 // What bounds it on an H100: the bytes. At B=64, P=N=2048, k=10, C=51 it
 // reads idx and w (10.5 MB) and the f32 cotangent (26.7 MB) once and
-// writes out (26.7 MB) once: 0.019 ms at 3.35 TB/s. The k atomic adds per
-// cotangent element land in out, which stays in the 50 MB L2.
+// writes out (26.7 MB) once: 0.019 ms at 3.35 TB/s.
 //
-// Design (B13's, ops/csrc/scatter_add.cu): one thread per cotangent element
-// (point, channel), channels fastest. It loads ct[b,p,c] once for all k
-// slots and adds w * ct with one f32 atomicAdd per slot, so the threads of
-// a warp add into neighbouring channels of one out row. The k
-// contributions to a row arrive in an order that changes from run to run,
-// so the sums are not bitwise reproducible: the tests hold them to 1e-5 of
-// the sum of magnitudes (ROADMAP C4). The wrapper zero-fills out. Targets
-// outside [0, N) are skipped rather than written out of bounds.
+// Design: B13's gather-sum over the inverse graph (scatter_add.cu,
+// csr_gather.cuh, built first). Each
+// destination row sums __fmul_rn(w[p,j], ct[p,c]) over its source slots in
+// ascending order and is written once: no float atomics, the same bits on
+// every launch, and bit for bit the plain version's index_add_ of w * ct.
+// Summing over the inverse of the transform stage's k=20 graph, whose
+// first 10 columns the smoothness loss uses, was tried and dropped: the
+// gather then visits twice the slots (0.298 ms on an H100 against 0.177
+// ms plus a 0.04 ms build of the loss's own graph's inverse,
+// scripts/torch_scatter_profile.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_gather.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-
-__global__ void __launch_bounds__(THREADS) scatter_add_weighted_kernel(
-    const int32_t* __restrict__ idx, const float* __restrict__ w,
-    const float* __restrict__ ct, int P, int k, int N, int C, long long total,
-    float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x; e < total;
-       e += stride) {
-    const long long row = e / C;  // b*P + p
-    const int c = (int)(e - row * C);
-    const float g = ct[e];
-    float* ob = out + (row / P) * N * C + c;
-    for (int j = 0; j < k; ++j) {
-      const int t = idx[row * k + j];
-      if ((unsigned)t >= (unsigned)N) continue;
-      atomicAdd(ob + (long long)t * C, __fmul_rn(w[row * k + j], g));
-    }
+// w [B, P, k] times ct [B, P, C] at a slot s = p * k + j
+struct WVal {
+  static constexpr int kUnroll = 4;
+  const float* w;
+  const float* ct;
+  int P, C;
+  FastDiv by_k;
+  __device__ __forceinline__ float operator()(int b, int s, int c) const {
+    const int p = by_k(s);
+    const size_t bp = (size_t)b * P + p;
+    return __fmul_rn(w[(size_t)b * P * by_k.d + s], ct[bp * C + c]);
   }
-}
+};
 
 }  // namespace
 
-// idx [B,P,k] int32, w [B,P,k] f32, ct [B,P,C] f32, out [B,N,C] f32 (zeroed
-// by the caller). Returns a cudaError_t.
-extern "C" int scatter_add_weighted_launch(const void* idx, const void* w,
-                                           const void* ct, int B, int P, int k,
-                                           int N, int C, void* out,
-                                           void* stream) {
-  const long long total = (long long)B * P * C;
-  if (total == 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err != cudaSuccess) return (int)err;
-  const long long want = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(want < (long long)sms * 16 ? want : (long long)sms * 16);
-  scatter_add_weighted_kernel<<<grid, THREADS, 0,
-                                reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int32_t*)idx, (const float*)w, (const float*)ct, P, k, N, C, total,
-      (float*)out);
-  return (int)cudaGetLastError();
+// idx [B,P,k] int32, w [B,P,k] f32, ct [B,P,C] f32; offsets [B,N+1] /
+// src [B,P*k] int32: the inverse of idx, built first (work as for
+// inverse_graph_launch). out [B,N,C] f32, written whole. Returns a
+// cudaError_t.
+extern "C" int scatter_add_weighted_launch(const void* w, const void* ct,
+                                           const void* idx, void* offsets,
+                                           void* src,
+                                           void* work, long long work_elems,
+                                           int B, int P, int k, int N, int C,
+                                           void* out, void* stream) {
+  if (k < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const int err = inverse_graph_launch(idx, B, P, k, N, offsets, src, work,
+                                       work_elems, stream);
+  if (err != 0) return err;
+  const int S = P * k;
+  return (int)csr_gather((const int32_t*)offsets, (const int32_t*)src, B, N,
+                         S, C,
+                         WVal{(const float*)w, (const float*)ct, P, C,
+                              make_fastdiv(k, S)},
+                         (float*)out, reinterpret_cast<cudaStream_t>(stream));
 }

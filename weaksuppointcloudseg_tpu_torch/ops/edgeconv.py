@@ -119,7 +119,7 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
     nv = n if n_valid is None else max(0, min(n_valid, n))
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     y = torch.empty((b, n, k, c), dtype=torch.bfloat16, device=dev)
-    mom = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    mom = torch.empty((2, c), dtype=torch.float32, device=dev)
     mm = (torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
           torch.empty((b, n, c), dtype=torch.int32, device=dev),
           torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
@@ -128,6 +128,8 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
     sqd = (torch.empty((b, n, k), dtype=torch.float32, device=dev)
            if with_values else None)
     norms = torch.empty((b, n), dtype=torch.float32, device=dev)  # scratch
+    # the blocks' partial moments (8 rows a block), summed in block order
+    part = torch.empty(2 * c * b * -(-n // 8), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.knn_edge_launch(
@@ -135,7 +137,8 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
             int(fast), nv, idx_bits(n) if fast else 0, norms.data_ptr(),
             idx.data_ptr(), y.data_ptr(), mom.data_ptr(),
             *[_build.ptr(t) for t in mm],
-            _build.ptr(sqd), _build.stream_ptr(dev))
+            _build.ptr(sqd), part.data_ptr(), part.numel(),
+            _build.stream_ptr(dev))
     _build.check(code, "knn_edge")
     knn_edge.launches += 1
     out = (idx, y, mom)
@@ -194,18 +197,20 @@ def knn_edge_pre(idx: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int,
         raise ValueError(f"knn_edge_pre: k={k}, batch {b} out of range")
     nv = n if n_valid is None else max(0, min(n_valid, n))
     y = torch.empty((b, n, k, c), dtype=torch.bfloat16, device=dev)
-    mom = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    mom = torch.empty((2, c), dtype=torch.float32, device=dev)
     mm = (torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
           torch.empty((b, n, c), dtype=torch.int32, device=dev),
           torch.empty((b, n, c), dtype=torch.bfloat16, device=dev),
           torch.empty((b, n, c), dtype=torch.int32, device=dev)
           ) if with_minmax else (None,) * 4
+    # the blocks' partial moments (32 rows a block), summed in block order
+    part = torch.empty(2 * c * b * -(-n // 32), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.knn_edge_pre_launch(
             idx.data_ptr(), v.data_ptr(), u.data_ptr(), b, n, c, k, nv,
             y.data_ptr(), mom.data_ptr(), *[_build.ptr(t) for t in mm],
-            _build.stream_ptr(dev))
+            part.data_ptr(), part.numel(), _build.stream_ptr(dev))
     _build.check(code, "knn_edge_pre")
     knn_edge_pre.launches += 1
     return (y, mom) + mm if with_minmax else (y, mom)

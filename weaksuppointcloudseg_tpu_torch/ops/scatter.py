@@ -13,19 +13,41 @@ scatter_pallas.py:
   ct[b, p]``, one cotangent row shared by the k slots, the backward of the
   weighted gathers of the smoothness loss (ops/wgather.py).
 
-Each wrapper launches its CUDA kernel on CUDA tensors and takes its plain
-version (``*_ref``) on CPU tensors; any other device raises. The kernels
-add with f32 atomics, so the k contributions to a row sum in an order that
-changes from run to run (the Pallas kernels sum in one-hot-matmul order):
-results agree with the plain versions to f32 rounding of the sums, not
-bitwise.
+On the card the three are gathers over the graph's inverse
+(:func:`inverse_graph`, built by a kernel in ``scatter_add.cu``): every
+destination row sums its sources in ascending flat slot order ``p*k + j``
+and is written once, with no float atomics. That is the order in which
+``index_add_`` sums on the CPU, so the kernels equal their plain versions
+(``*_ref``) bit for bit, and every launch gives the same bits. Each
+launch builds the inverse of its own graph first.
+
+Each wrapper launches its CUDA kernels on CUDA tensors and takes its plain
+version on CPU tensors; any other device raises.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import _build
+
+
+class InverseGraph(NamedTuple):
+    """The CSR of a [B, P, k] kNN graph by destination row.
+
+    offsets: int32 [B, N + 1]; the sources of row t of cloud b are
+      ``src[b, offsets[b, t]:offsets[b, t + 1]]``.
+    src: int32 [B, P * k] flat source slots ``p * k + j``, ascending within
+      each row; the slots whose target lies outside [0, N) are skipped and
+      the places past ``offsets[b, N]`` hold -1.
+    k: the graph's slots per point.
+    """
+
+    offsets: torch.Tensor
+    src: torch.Tensor
+    k: int
 
 
 def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -34,11 +56,96 @@ def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.long() + base).reshape(-1)
 
 
+def inverse_graph_ref(idx: torch.Tensor, n: int) -> InverseGraph:
+    """Plain PyTorch version of :func:`inverse_graph`: a stable sort of the
+    flat destination keys (targets outside [0, n) sort last)."""
+    b, p, k = idx.shape
+    t = idx.reshape(b, p * k).long()
+    key = torch.where((t >= 0) & (t < n), t, n)
+    src = torch.sort(key, dim=1, stable=True).indices.int()
+    counts = torch.zeros((b, n + 1), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.zeros((b, n + 1), dtype=torch.long, device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :n], dim=1)
+    skipped = torch.arange(p * k, device=idx.device)[None] >= offsets[:, n:]
+    return InverseGraph(offsets.int(), torch.where(skipped, -1, src), k)
+
+
+_INV_CHUNK = 4096  # slots a block of the build takes (scatter_add.cu)
+
+
+def inverse_graph(idx: torch.Tensor, n: int) -> InverseGraph:
+    """The inverse of the kNN graph ``idx`` (int32 [B, P, k]) with ``n``
+    destination rows: on CUDA the kernels (a stable counting sort over
+    chunks of slots; n up to about 58,000), on the CPU the plain
+    version."""
+    if idx.device.type == "cpu":
+        return inverse_graph_ref(idx, n)
+    if idx.device.type != "cuda":
+        raise ValueError(f"inverse_graph: unsupported device {idx.device}")
+    b, p, k = idx.shape
+    dev = idx.device
+    _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
+    inv, work = _alloc_inverse(b, p, k, n, dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.inverse_graph_launch(idx.data_ptr(), b, p, k, n,
+                                        inv.offsets.data_ptr(),
+                                        inv.src.data_ptr(), work.data_ptr(),
+                                        work.numel(), _build.stream_ptr(dev))
+    _build.check(code, "inverse_graph")
+    inverse_graph.launches += 1
+    return inv
+
+
+def _alloc_inverse(b: int, p: int, k: int, n: int, dev):
+    """An unfilled inverse of a [b, p, k] graph and the build's workspace
+    (per chunk of slots, its counts and then its cursors for every row),
+    in one allocation."""
+    n_off, n_src = b * (n + 1), b * p * k
+    buf = torch.empty(n_off + n_src + b * -(-(p * k) // _INV_CHUNK) * n,
+                      dtype=torch.int32, device=dev)
+    return (InverseGraph(buf[:n_off].view(b, n + 1),
+                         buf[n_off:n_off + n_src].view(b, p * k), k),
+            buf[n_off + n_src:])
+
+
+def _inverse_args(idx: torch.Tensor, n: int):
+    """(the inverse's buffers, the launch arguments idx, offsets, src,
+    workspace and its length) of a kernel that builds the inverse of
+    ``idx`` (int32 [B, P, k] on CUDA) and then sums over it. The caller
+    holds the buffers until it has launched (freed earlier, their memory
+    could pass to its output)."""
+    b, p, k = idx.shape
+    inv, work = _alloc_inverse(b, p, k, n, idx.device)
+    return (inv, work), (idx.data_ptr(), inv.offsets.data_ptr(),
+                         inv.src.data_ptr(), work.data_ptr(), work.numel())
+
+
+def gather_sum_ref(inv: InverseGraph, vals: torch.Tensor) -> torch.Tensor:
+    """The kernels' sum written out in plain PyTorch: out [B, N, C] f32,
+    each row adding ``vals[b, s]`` ([B, S, C] at the flat slots s of the
+    inverse's graph) over its sources in CSR order, one position of every
+    row at a time. A test's independent check of the order."""
+    b, n1 = inv.offsets.shape
+    n, c = n1 - 1, vals.shape[-1]
+    offs = inv.offsets.long()
+    deg = offs[:, 1:] - offs[:, :-1]
+    out = torch.zeros((b, n, c), dtype=torch.float32, device=vals.device)
+    bi = torch.arange(b, device=vals.device)[:, None].expand(b, n)
+    for r in range(int(deg.max()) if deg.numel() else 0):
+        live = deg > r
+        s = inv.src.long()[bi[live], offs[:, :-1][live] + r]
+        out[live] = out[live] + vals[bi[live], s].float()
+    return out
+
+
 def scatter_add_ref(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`scatter_add` (same contract)."""
     b, c = g.shape[0], g.shape[-1]
     out = torch.zeros((b * n, c), dtype=torch.float32, device=g.device)
-    out.index_add_(0, _flat_rows(idx, n), g.reshape(-1, c).float())
+    valid = ((idx >= 0) & (idx < n)).reshape(-1)
+    out.index_add_(0, _flat_rows(idx, n)[valid], g.reshape(-1, c).float()[valid])
     return out.reshape(b, n, c)
 
 
@@ -46,7 +153,7 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """``out[b, idx[b, p, j]] += g[b, p, j]`` -> f32 [B, n, C].
 
     Args:
-      idx: int32 [B, P, k] target rows, each in [0, n).
+      idx: int32 [B, P, k] target rows; rows outside [0, n) are skipped.
       g: f32 [B, P, k, C] contributions.
       n: rows of the output.
     """
@@ -59,12 +166,14 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     dev = g.device
     _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
     _build.check_operand(g, "g", torch.float32, dev, (b, p, k, c))
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    held, inv_args = _inverse_args(idx, n)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        code = lib.scatter_add_launch(idx.data_ptr(), g.data_ptr(), b, p, k, n,
-                                      c, out.data_ptr(), _build.stream_ptr(dev))
+        code = lib.scatter_add_launch(g.data_ptr(), *inv_args, b, p, k, n, c,
+                                      out.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "scatter_add")
+    inverse_graph.launches += 1
     scatter_add.launches += 1
     return out
 
@@ -79,9 +188,12 @@ def scatter_bn_bwd_ref(idx, y, big, sv, alpha, beta, n: int):
     else:
         first = sv * big.float()
     dy = (first + alpha) + beta * y.float()
+    du = torch.zeros_like(dy[:, :, 0])
+    for j in range(k):  # the slots in order, as the kernel sums them
+        du = du + dy[:, :, j]
     # dv takes the cotangent rounded to y's dtype, as the kernel's bf16
     # one-hot-matmul operands in the reference
-    return scatter_add_ref(idx, dy.to(y.dtype), n), dy.sum(dim=2)
+    return scatter_add_ref(idx, dy.to(y.dtype), n), du
 
 
 def scatter_bn_bwd(idx: torch.Tensor, y: torch.Tensor, big, sv: torch.Tensor,
@@ -89,7 +201,7 @@ def scatter_bn_bwd(idx: torch.Tensor, y: torch.Tensor, big, sv: torch.Tensor,
     """(dv, du) of ``dy = first + alpha + beta * y`` without a dy tensor.
 
     Args:
-      idx: int32 [B, P, k] target rows, each in [0, n).
+      idx: int32 [B, P, k] target rows; rows outside [0, n) are skipped.
       y: bf16 [B, P, k, C] saved pre-BN activations.
       big: dense mode dz bf16 [B, P, k, C] (first = sv * dz), or sparse
         mode (q f32 [B, P, C], asel int32 [B, P, C]) (first = q at the
@@ -122,16 +234,18 @@ def scatter_bn_bwd(idx: torch.Tensor, y: torch.Tensor, big, sv: torch.Tensor,
         _build.check_operand(sv, "sv", torch.float32, dev, (c,))
     for t, name in ((alpha, "alpha"), (beta, "beta")):
         _build.check_operand(t, name, torch.float32, dev, (c,))
-    dv = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    held, inv_args = _inverse_args(idx, n)
+    dv = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     du = torch.empty((b, p, c), dtype=torch.float32, device=dev)
+    dyb = torch.empty_like(y)  # scratch: bf16(dy), the gather's rows
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.scatter_bn_bwd_launch(
-            idx.data_ptr(), y.data_ptr(),
-            *map(_build.ptr, (dz, q, asel, sv)), alpha.data_ptr(),
-            beta.data_ptr(), b, p, k, n, c, dv.data_ptr(), du.data_ptr(),
-            _build.stream_ptr(dev))
+            *inv_args, y.data_ptr(), *map(_build.ptr, (dz, q, asel, sv)),
+            alpha.data_ptr(), beta.data_ptr(), b, p, k, n, c, dyb.data_ptr(),
+            dv.data_ptr(), du.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "scatter_bn_bwd")
+    inverse_graph.launches += 1
     scatter_bn_bwd.launches += 1
     return dv, du
 
@@ -148,7 +262,7 @@ def scatter_add_weighted(idx: torch.Tensor, w: torch.Tensor, ct: torch.Tensor,
     """``out[b, idx[b, p, j]] += w[b, p, j] * ct[b, p]`` -> f32 [B, n, C].
 
     Args:
-      idx: int32 [B, P, k] target rows, each in [0, n).
+      idx: int32 [B, P, k] target rows; rows outside [0, n) are skipped.
       w: f32 [B, P, k] per-slot weights.
       ct: f32 [B, P, C] contributions, shared by the k slots.
       n: rows of the output.
@@ -163,17 +277,20 @@ def scatter_add_weighted(idx: torch.Tensor, w: torch.Tensor, ct: torch.Tensor,
     _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
     _build.check_operand(w, "w", torch.float32, dev, (b, p, k))
     _build.check_operand(ct, "ct", torch.float32, dev, (b, p, c))
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
+    held, inv_args = _inverse_args(idx, n)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.scatter_add_weighted_launch(
-            idx.data_ptr(), w.data_ptr(), ct.data_ptr(), b, p, k, n, c,
+            w.data_ptr(), ct.data_ptr(), *inv_args, b, p, k, n, c,
             out.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "scatter_add_weighted")
+    inverse_graph.launches += 1
     scatter_add_weighted.launches += 1
     return out
 
 
-scatter_add.launches = 0  # kernel launches since the last reset
+inverse_graph.launches = 0  # inverse builds (alone or in a scatter) since the last reset
+scatter_add.launches = 0
 scatter_bn_bwd.launches = 0
 scatter_add_weighted.launches = 0
