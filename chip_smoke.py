@@ -951,7 +951,9 @@ def check_conv_kmax_bwd(gen, report):
     the blocks in block order) within 1e-5 of the sums of magnitudes of the
     exact (f64) sums, which the plain version's f32 einsum misses by more
     (1.5e-5 for G); (a1, a2) within 1e-5 of the sums of magnitudes of the
-    plain ones; two launches bit for bit equal."""
+    plain ones; two launches bit for bit equal, and a launch on 66
+    persistent blocks bit for bit the launch on one per SM (ROADMAP
+    C17)."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import conv_kmax
@@ -996,6 +998,11 @@ def check_conv_kmax_bwd(gen, report):
         max_err = max(max_err, (got[0].float() - want[0].float()).abs().max().item())
         repeats(lambda: conv_kmax.conv_kmax_bwd(*args),
                 f"conv_kmax_bwd (B3) 64x{c2}")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grids = all_same_bits(conv_kmax._kmax_bwd(*args, grid=66), got)
+        print(f"  conv_kmax_bwd (B3) 64x{c2}: 66 blocks and {sms} (one per "
+              f"SM) bit for bit equal: {grids}")
+        require(grids, f"conv_kmax_bwd 64x{c2}: the sums depend on the grid")
         ms = timed_ms(lambda: conv_kmax.conv_kmax_bwd(*args))
         plain_ms = timed_ms(lambda: conv_kmax.conv_kmax_bwd_ref(*args), reps=3)
         r = PB * PN * K

@@ -345,6 +345,26 @@ def test_nmax_bwd_limits_reject_wrong_routing_and_rounding():
         assert within(out)[:2] == [False, False]
 
 
+@pytest.mark.parametrize("points", [32 * 2048, 28 * 4096, 2 * 301,
+                                    8 * 264 + 5, 7])
+def test_kmax_bwd_partials_do_not_depend_on_the_sm_count(points):
+    """B3's partial plan (ROADMAP C17): on cards of 66, 114 and 132 SMs the
+    same partial rows (min(264, tiles)), each summing the same tiles in
+    the same order, every tile in exactly one row; the grid at most one
+    block per SM and per row."""
+    tiles = -(-points // 8)
+    walks = []
+    for sms in (66, 114, 132):
+        rows, grid = conv_kmax.kmax_bwd_plan(points, sms)
+        assert rows == min(264, tiles)
+        assert grid == min(rows, sms)
+        walks.append(conv_kmax.kmax_bwd_partials(points, grid))
+    assert walks[0] == walks[1] == walks[2]
+    assert all(part[0] == v and list(part) == sorted(part)
+               for v, part in enumerate(walks[0]))
+    assert sorted(t for part in walks[0] for t in part) == list(range(tiles))
+
+
 def test_training_wrappers_reject_other_devices():
     meta = dict(device="meta")
     h1 = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16, **meta)

@@ -506,6 +506,29 @@ def test_conv_kmax_bwd_kernel(gen, c2, exact):
                                               (dz * xhat).sum((0, 1, 2))]))
 
 
+@pytest.mark.parametrize("c2", [64, 128])
+def test_conv_kmax_bwd_same_bits_at_two_grids(gen, c2):
+    """B3's sums do not depend on the grid (ROADMAP C17): a launch on 66
+    persistent blocks gives the bits of a launch on one block per SM, at a
+    shape of more tiles than partial rows (2 x 2048 points: 512 tiles,
+    264 rows)."""
+    b, n, k, c1 = 2, 2048, 20, 64
+    vec = [randn(gen, (c1,), torch.float32) for _ in range(5)]
+    vec[4] = vec[4].abs() + 0.5
+    args = (randn(gen, (b, n, k, c1)), randn(gen, (b, n, c2), torch.float32),
+            torch.randint(0, k, (b, n, c2), generator=gen, device="cuda",
+                          dtype=torch.int32),
+            randn(gen, (c2, c1), scale=0.2), randn(gen, (c1, c1), scale=0.05),
+            *vec)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert conv_kmax.kmax_bwd_plan(b * n, sms) == (264, min(264, sms))
+    got = conv_kmax.conv_kmax_bwd(*args)
+    other = conv_kmax._kmax_bwd(*args, grid=66)
+    assert len(got) == len(other)
+    for a, o in zip(got, other):
+        assert same_bits(a, o)  # (defined with the fixed-order tests below)
+
+
 def on_grid(gen, shape, scale, step, lim, dtype=torch.float32):
     """Normal values rounded to multiples of ``step``, at most ``lim``
     steps from 0."""

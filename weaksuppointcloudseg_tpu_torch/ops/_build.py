@@ -43,7 +43,7 @@ SIGNATURES = {
     "scatter_add_launch": [P, P, P, P, P, LL] + [I] * 5 + [P, P],
     "conv_minmax_launch": [P] * 5 + [I] * 3 + [P] * 6 + [LL, P],
     "conv_nmax_launch": [P, P, P] + [I] * 5 + [P] * 11,
-    "conv_kmax_bwd_launch": [P] * 10 + [I] * 4 + [P] * 3 + [LL, P],
+    "conv_kmax_bwd_launch": [P] * 10 + [I] * 5 + [P] * 3 + [LL, P],
     "conv_nmax_bwd_launch": [P] * 7 + [I] * 5 + [P] * 5 + [LL, P],
     "scatter_bn_bwd_launch": [P, P, P, P, LL] + [P] * 7 + [I] * 5 + [P] * 4,
     "wgather_pre_launch": [P, P, P, I, I, I, I, P, P],

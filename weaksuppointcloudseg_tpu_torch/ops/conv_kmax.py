@@ -306,6 +306,32 @@ def conv_nmax(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return (*out, mom)
 
 
+_KB_TILE, _KB_PARTS = 8, 264  # B3's points per tile and partial rows (.cu)
+
+
+def kmax_bwd_plan(points: int, sms: int):
+    """(partial rows, grid) of B3 over ``points`` rows of [k, C1] on a card
+    of ``sms`` SMs: min(264, tiles) partial rows, each a fixed set of
+    tiles summed in a fixed order (:func:`kmax_bwd_partials`), on at most
+    one persistent block per SM. The rows, and so every sum, do not depend
+    on ``sms``."""
+    rows = min(_KB_PARTS, -(-points // _KB_TILE))
+    return rows, min(rows, sms)
+
+
+def kmax_bwd_partials(points: int, grid: int):
+    """The tiles that each of B3's partial rows sums, in the order it sums
+    them, when ``grid`` persistent blocks walk them: the kernel's loop nest
+    (block -> its virtual blocks -> their tiles) written out."""
+    tiles = -(-points // _KB_TILE)
+    rows = min(_KB_PARTS, tiles)
+    parts = [None] * rows
+    for block in range(grid):
+        for v in range(block, rows, grid):
+            parts[v] = tuple(range(v, tiles, _KB_PARTS))
+    return parts
+
+
 def conv_kmax_bwd(h1: torch.Tensor, q: torch.Tensor, asel: torch.Tensor,
                   w2t: torch.Tensor, m: torch.Tensor, row0: torch.Tensor,
                   scale1: torch.Tensor, shift1: torch.Tensor,
@@ -345,22 +371,31 @@ def conv_kmax_bwd(h1: torch.Tensor, q: torch.Tensor, asel: torch.Tensor,
     if c1 != 64 or c2 not in (64, 128):
         raise ValueError(f"conv_kmax_bwd: C1={c1}, C2={c2}: the kernel takes "
                          "C1=64 and C2 in (64, 128)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _kmax_bwd(h1, q, asel, w2t, m, row0, scale1, shift1, mean1, inv1,
+                     kmax_bwd_plan(b * n, sms)[1])
+
+
+def _kmax_bwd(h1, q, asel, w2t, m, row0, scale1, shift1, mean1, inv1,
+              grid: int):
+    """B3's launch on ``grid`` persistent blocks (checked operands; the
+    sums are the same bits at any grid)."""
+    b, n, k, c1 = h1.shape
+    c2 = q.shape[-1]
+    dev = h1.device
     dz = torch.empty_like(h1)
     width = c1 * c2 + c1 * c1 + 3 * c1  # T_sp, G, (S1, a1, a2)
     sums = torch.empty(width, dtype=torch.float32, device=dev)
-    # one partial row per persistent block (one per SM, one per 8 points at
-    # most), summed in block order
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty(min(sms, -(-(b * n) // 8)) * width,
-                       dtype=torch.float32, device=dev)
+    rows = kmax_bwd_plan(b * n, grid)[0]
+    part = torch.empty(rows * width, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.conv_kmax_bwd_launch(
             h1.data_ptr(), q.data_ptr(), asel.data_ptr(), w2t.data_ptr(),
             m.data_ptr(), row0.data_ptr(), scale1.data_ptr(), shift1.data_ptr(),
             mean1.data_ptr(), inv1.data_ptr(),
-            b * n, k, c1, c2, dz.data_ptr(), sums.data_ptr(), part.data_ptr(),
-            part.numel(), _build.stream_ptr(dev))
+            b * n, k, c1, c2, grid, dz.data_ptr(), sums.data_ptr(),
+            part.data_ptr(), part.numel(), _build.stream_ptr(dev))
     _build.check(code, "conv_kmax_bwd")
     conv_kmax_bwd.launches += 1
     tsp = sums[:c1 * c2].view(c1, c2)
