@@ -96,8 +96,13 @@ Phase 2 also holds B15 (kNN + row gather) to its plain version and to
 B1's graph at the f32 training batch's shape, with B15's and B16's VJPs,
 B13, B4 and B6's scatter bit for bit against their plain versions run on
 the CPU (a slice of the batch) with the inverse graph they sum over
-against its plain version, two launches of every kernel that sums (B1-B6,
-B11, B13) bit for bit equal (ROADMAP C16),
+against its plain version (by both build routes, the cluster build and
+the three-launch build, at every scatter's shape, on a hub graph, on
+targets outside [0, N) and on S3DIS B4's k=20 graph; B13 at C=3 and 64
+and B6's scatter at 51 and 14 channels print their build and gather
+device times beside ``index_add_``), two launches of every kernel that
+sums (B1-B6, B11, B13) bit for bit equal (ROADMAP C16), B3 on 66
+persistent blocks bit for bit B3 on one block per SM (ROADMAP C17),
 B14 (the bf16 row gather) to its plain version
 bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
@@ -623,23 +628,40 @@ def check_knn(gen, report):
 
 
 def check_inverse_graph(idx, n, what):
-    """The inverse-graph kernel against its plain version (a stable sort
-    on the card): offsets and sources equal. Returns (build ms, plain ms,
-    bound)."""
+    """The inverse-graph build against its plain version (a stable sort on
+    the card): offsets and sources equal, by the route the shape picks and
+    by each build route that takes the shape (the cluster build; the
+    three-launch build, which takes every phase-2 shape). Returns (build
+    ms, plain ms, bound) of the route the shape picks."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import scatter
 
-    got = scatter.inverse_graph(idx, n)
     want = scatter.inverse_graph_ref(idx, n)
-    torch.cuda.synchronize()
-    same = torch.equal(got.offsets, want.offsets) and torch.equal(got.src,
-                                                                   want.src)
-    require(same, f"inverse_graph {what}: differs from its plain version")
+    b, p, k = idx.shape
+    route = scatter.inverse_route(p, k, n)[0]
+    times = {}
+    for r in (None, "cluster", "chunks"):
+        if r == "cluster" and route != "cluster":
+            continue
+        got = scatter._build_inverse(idx, n, r)
+        torch.cuda.synchronize()
+        same = torch.equal(got.offsets, want.offsets) and torch.equal(
+            got.src, want.src)
+        require(same, f"inverse_graph {what} route {r or route}: differs "
+                "from its plain version")
+        times[r or route] = device_ms(lambda: scatter._build_inverse(idx, n, r))
     ms = timed_ms(lambda: scatter.inverse_graph(idx, n))
     plain_ms = timed_ms(lambda: scatter.inverse_graph_ref(idx, n))
     # idx read once, offsets and src written once; integer work only
-    return ms, plain_ms, bound(0.0, "f32", nbytes(idx, got.offsets, got.src))
+    bnd = bound(0.0, "f32", nbytes(idx, want.offsets, want.src))
+    print(f"  inverse_graph B={b} P={p} k={k} N={n} ({what}): {route} route "
+          f"picked; every route bit for bit the plain version; with the "
+          f"host's launches hidden " + ", ".join(
+              f"{r} {t:.4f} ms" for r, t in times.items())
+          + f"; picked {ms:.4f} ms between events, plain {plain_ms:.3f} ms, "
+          f"bound {bnd[0]:.4f} ms")
+    return ms, plain_ms, bnd
 
 
 def check_scatter_add(gen, report):
@@ -647,8 +669,10 @@ def check_scatter_add(gen, report):
     gathers: B=64, P=N=2048, k=20, C=64 and C=3), with the inverse graph
     it sums over.
 
-    Checks: the inverse equals its plain version; two launches give the
-    same bits; on a slice of the batch (B=4) the kernel equals the plain
+    Checks: the inverse equals its plain version, by each build route
+    that takes the shape, here and on a hub graph, on targets outside
+    [0, N) and on S3DIS B4's k=20 graph (B=28, N=4096); two launches give
+    the same bits; on a slice of the batch (B=4) the kernel equals the plain
     version run on the CPU bit for bit (both sum each row in ascending
     slot order); at the full shape each element within 1e-5 of the sum of
     magnitudes that reach it (ROADMAP C4, kept). Times: the kernel with its
@@ -704,6 +728,22 @@ def check_scatter_add(gen, report):
               f"with the host's launches hidden (device_ms): kernel "
               f"{dev_ms:.4f} ms, index_add_ {lib_dev_ms:.4f} ms")
         times[f"inv{c}"] = (inv_ms, inv_plain_ms, inv_bnd)
+    # the build on the graphs that stress it, at the training batch's shape,
+    # and on S3DIS B4's k=20 graph (a generator of their own: the later
+    # checks' inputs stay as they were)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(1)
+    hubs = torch.arange(K, dtype=torch.int32, device="cuda").expand(
+        TB, TN, K).contiguous()
+    check_inverse_graph(hubs, TN, "hubs: an all-equal cloud's graph")
+    idx = torch.randint(0, TN, (TB, TN, K), generator=own, device="cuda",
+                        dtype=torch.int32)
+    drop = torch.rand((TB, TN, K), generator=own, device="cuda") < 0.05
+    check_inverse_graph(torch.where(drop, TN + 3, idx).int(), TN,
+                        "5% of targets outside [0, N)")
+    check_inverse_graph(torch.randint(0, RN, (RB, RN, K), generator=own,
+                                      device="cuda", dtype=torch.int32),
+                        RN, "S3DIS B4's k=20 graph")
     ms, plain_ms, bnd, lib_ms = times[64]
     report.append(kernel_row(
         "scatter_add (B13)", "weaksuppointcloudseg_tpu_torch/ops/csrc/scatter_add.cu",
@@ -947,8 +987,8 @@ def check_conv_kmax_bwd(gen, report):
     """B3 against conv_kmax_bwd_ref at the stage shapes (C1=64, C2=64 and
     128, the BN1 fold on). Tolerances: dz within one bf16 ulp of the plain
     value (+1e-5 of the largest: f32 sums in another order, then one
-    rounding); T_sp, G and S1 (sums of 1.3M terms, per block and then over
-    the blocks in block order) within 1e-5 of the sums of magnitudes of the
+    rounding); T_sp, G and S1 (sums of 1.3M terms, per partial row and
+    then over the rows in index order) within 1e-5 of the sums of magnitudes of the
     exact (f64) sums, which the plain version's f32 einsum misses by more
     (1.5e-5 for G); (a1, a2) within 1e-5 of the sums of magnitudes of the
     plain ones; two launches bit for bit equal, and a launch on 66
@@ -1041,6 +1081,7 @@ def check_scatter_bn_bwd(gen, report):
     y = bf16_randn(gen, (PB, PN, K, 64))
     sv, al, be = (torch.randn(64, generator=gen, device="cuda") * 0.1
                   for _ in range(3))
+    inv_ms = check_inverse_graph(idx, PN, "B4's graph")[0]
     for sparse in (False, True):
         if sparse:
             q = torch.randn((PB, PN, 64), generator=gen, device="cuda") * 0.1
@@ -1083,14 +1124,13 @@ def check_scatter_bn_bwd(gen, report):
         ins = (idx, y, *(big if sparse else (big, sv)), al, be)
         bnd = bound(5.0 * y.numel(), "f32", nbytes(*ins, dv, du))
         times[sparse] = (ms, plain_ms, bnd)
-        inv_ms = timed_ms(lambda: scatter.inverse_graph(idx, PN))
         dev_ms = device_ms(lambda: scatter.scatter_bn_bwd(
             idx, y, big, sv, al, be, PN))
         print(f"  scatter_bn_bwd B={PB} P=N={PN} k={K} C=64 "
               f"{'sparse' if sparse else 'dense'}: du {du_err:.2e}, dv "
               f"{dv_err:.2e} of the magnitudes; kernel {ms:.3f} ms ({dev_ms:.3f} "
               f"with the host's launches hidden; its inverse build alone "
-              f"{inv_ms:.3f} ms), plain "
+              f"{inv_ms:.4f} ms), plain "
               f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
               f"{100 * bnd[0] / ms:.1f}% of bound")
     ms, plain_ms, bnd = times[False]
@@ -1325,16 +1365,22 @@ def check_scatter_add_weighted(gen, report):
         contrib = (w[..., None] * ct[:, :, None, :]).reshape(-1, c)
         out = torch.zeros((b * n, c), device="cuda")
         lib_ms = timed_ms(lambda: out.index_add_(0, rows, contrib))
+        lib_dev_ms = device_ms(lambda: out.index_add_(0, rows, contrib))
         del contrib, rows, out
         bnd = bound(2.0 * idx.numel() * c, "f32", nbytes(idx, w, ct, got))
         times[c] = ((got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms)
-        inv_ms = timed_ms(lambda: scatter.inverse_graph(idx, n))
+        inv_ms = check_inverse_graph(idx, n, f"B6's graph, C={c}")[0]
         dev_ms = device_ms(lambda: scatter.scatter_add_weighted(idx, w, ct, n))
+        split = kernel_device_ms(
+            lambda: scatter.scatter_add_weighted(idx, w, ct, n),
+            ("inverse_", "csr_gather"))
         print(f"  scatter_add_weighted (B6) B={b} P=N={n} k={SK} C={c}: "
-              f"{err:.2e} of the magnitudes; kernel {ms:.3f} ms ({dev_ms:.3f} "
-              f"with the host's launches hidden; its inverse build alone "
-              f"{inv_ms:.3f} ms), plain "
-              f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms, bound "
+              f"{err:.2e} of the magnitudes; kernel {ms:.3f} ms ({dev_ms:.4f} "
+              f"with the host's launches hidden; on the device "
+              f"{split[1]:.4f} ms gather, {split[0]:.4f} ms build; its "
+              f"inverse build alone {inv_ms:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms ({lib_dev_ms:.4f} "
+              f"with the host's launches hidden), bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
     max_err, ms, plain_ms, bnd, lib_ms = times[51]
     report.append(kernel_row(

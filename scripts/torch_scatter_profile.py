@@ -12,7 +12,10 @@ CUDA kernel a call launches (torch.profiler, summed per kernel name over
 included, as chip_smoke.py's ``timed_ms``), and the device time of a call
 with the host's launches hidden (10 calls queued behind a sleep kernel,
 CUDA events around them). Each scatter builds its graph's inverse; the
-per-kernel times split the build from the gather.
+per-kernel times split the build from the gather. The inverse alone is
+shown by each of its two routes (the cluster build, which these shapes
+take, and the three-launch build), at B13's shape and at S3DIS B4's
+(B=28, N=4096, k=20).
 """
 
 from __future__ import annotations
@@ -63,8 +66,9 @@ def main() -> int:
         idx = torch.randint(0, tn, (tb, tn, k), generator=gen, device="cuda",
                             dtype=torch.int32)
         g = torch.randn((tb, tn, k, c), generator=gen, device="cuda")
-        show(f"inverse_graph B={tb} P=N={tn} k={k}",
-             lambda: scatter.inverse_graph(idx, tn))
+        for route in ("cluster", "chunks"):
+            show(f"inverse_graph B={tb} P=N={tn} k={k}, {route} build",
+                 lambda: scatter._build_inverse(idx, tn, route))
         show(f"scatter_add C={c} with its build",
              lambda: scatter.scatter_add(idx, g, tn))
         rows = scatter._flat_rows(idx, tn)
@@ -82,6 +86,12 @@ def main() -> int:
     q = torch.randn((pb, pn, 64), generator=gen, device="cuda")
     asel = torch.randint(0, k, (pb, pn, 64), generator=gen, device="cuda",
                          dtype=torch.int32)
+    s3 = torch.randint(0, cs.RN, (cs.RB, cs.RN, k), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    for route in ("cluster", "chunks"):
+        show(f"inverse_graph B={cs.RB} P=N={cs.RN} k={k} (S3DIS B4's graph), "
+             f"{route} build", lambda: scatter._build_inverse(s3, cs.RN, route))
+    del s3
     for name, big in (("dense", dz), ("sparse", (q, asel))):
         show(f"scatter_bn_bwd B={pb} {name} with its build",
              lambda: scatter.scatter_bn_bwd(idx, y, big, sv, al, be, pn))

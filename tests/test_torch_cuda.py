@@ -1621,26 +1621,60 @@ def scatter_graph(gen, case, b, p, k, n):
     return idx
 
 
-@pytest.mark.parametrize("case,p,n", [
-    ("random", 333, 300), ("hubs", 2048, 2048), ("outside", 500, 777),
-    ("random", 1001, 4096), ("random", 40, 25000), ("random", 4096, 4096),
-    ("hubs", 4096, 4096), ("outside", 3500, 3000)])
-def test_inverse_graph_kernel(gen, case, p, n):
-    """The inverse-graph kernels equal their plain version on the CPU (a
-    stable sort): offsets and every segment's ascending sources. Both
-    routes: one block a cloud where its 20 p slots fit in shared memory,
-    chunks otherwise (20 p >= 65536, or N too large for the slots)."""
-    idx = scatter_graph(gen, case, 2, p, 20, n)
+@pytest.mark.parametrize("route", [None, "cluster", "chunks"])
+@pytest.mark.parametrize("case,b,p,k,n", [
+    ("random", 2, 333, 20, 300), ("hubs", 2, 2048, 20, 2048),
+    ("outside", 2, 500, 20, 777), ("random", 2, 1001, 20, 4096),
+    ("random", 2, 40, 20, 25000), ("random", 2, 4096, 20, 4096),
+    ("hubs", 2, 4096, 20, 4096), ("outside", 2, 3500, 20, 3000),
+    ("hubs", 1, 2048, 20, 2048), ("outside", 1, 4096, 10, 4096),
+    ("random", 1, 7616, 20, 7616), ("random", 1, 7617, 20, 7617),
+    ("random", 2, 7, 3, 5)])
+def test_inverse_graph_kernel(gen, case, b, p, k, n, route):
+    """The inverse-graph build equals its plain version on the CPU (a
+    stable sort): offsets and every segment's ascending sources; by the
+    route the shape picks (None) and by each route forced, the cluster
+    build where its shared memory fits (else its launcher refuses the
+    shape) and the three-launch build at every shape. Hubs: an all-equal
+    cloud's graph; outside: 5% of targets outside [0, N); P != N; B=1."""
+    idx = scatter_graph(gen, case, b, p, k, n)
+    if route == "cluster" and scatter.inverse_route(p, k, n)[0] != "cluster":
+        with pytest.raises(RuntimeError, match="inverse_graph"):
+            scatter._build_inverse(idx, n, route)
+        return
     before = scatter.inverse_graph.launches
-    got = scatter.inverse_graph(idx, n)
+    got = scatter._build_inverse(idx, n, route)
     assert scatter.inverse_graph.launches == before + 1
     want = scatter.inverse_graph_ref(idx.cpu(), n)
     assert torch.equal(got.offsets.cpu(), want.offsets)
     assert torch.equal(got.src.cpu(), want.src)
 
 
+def test_inverse_route_mirrors_the_launcher():
+    """ops/scatter.py::inverse_route (which sizes the workspace) and the
+    C launcher's rule pick the same route, shared memory and workspace."""
+    import ctypes
+
+    from weaksuppointcloudseg_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = _build.library()
+    names = {0: None, 1: "cluster", 2: "chunks"}
+    for p, k, n in [(2048, 20, 2048), (4096, 10, 4096), (4096, 20, 4096),
+                    (1024, 20, 1024), (3000, 20, 3000), (7616, 20, 7616),
+                    (7617, 20, 7617), (8192, 20, 8192), (40, 20, 25000),
+                    (100000, 20, 1000), (1000, 20, 58112), (10, 20, 58113),
+                    (333, 20, 300), (1, 1, 1), (0, 20, 10), (10, 20, 0)]:
+        smem, work = ctypes.c_longlong(), ctypes.c_longlong()
+        route = lib.inverse_graph_route(p, k, n, ctypes.byref(smem),
+                                        ctypes.byref(work))
+        assert (names[route], smem.value, work.value) == \
+            scatter.inverse_route(p, k, n), (p, k, n)
+
+
 @pytest.mark.parametrize("case", ["random", "hubs", "nan", "outside"])
-@pytest.mark.parametrize("c", [1, 3, 9, 64, 130])
+@pytest.mark.parametrize("c", [1, 3, 5, 9, 14, 17, 31, 64, 130])
 def test_scatter_add_kernel_bitwise(gen, c, case):
     """B13 equals its plain version run on the CPU bit for bit (both sum
     each row in ascending slot order), and two launches give the same
@@ -1657,7 +1691,7 @@ def test_scatter_add_kernel_bitwise(gen, c, case):
 
 
 @pytest.mark.parametrize("case", ["random", "hubs"])
-@pytest.mark.parametrize("c", [64, 9])
+@pytest.mark.parametrize("c", [64, 9, 14])
 @pytest.mark.parametrize("sparse", [False, True])
 def test_scatter_bn_bwd_kernel_bitwise(gen, sparse, c, case):
     """B4's dv and du equal the plain version run on the CPU bit for bit;
@@ -1682,15 +1716,22 @@ def test_scatter_bn_bwd_kernel_bitwise(gen, sparse, c, case):
         assert same_bits(g_, w_) and same_bits(g_, a_)
 
 
-@pytest.mark.parametrize("case", ["random", "hubs"])
-@pytest.mark.parametrize("c", [51, 14, 3])
+@pytest.mark.parametrize("case", ["random", "hubs", "unaligned"])
+@pytest.mark.parametrize("c", [51, 14, 3, 6, 9, 20, 31])
 def test_scatter_add_weighted_kernel_bitwise(gen, c, case):
     """B6's scatter equals its plain version run on the CPU bit for bit,
-    and two launches give the same bits."""
+    and two launches give the same bits, at every lane layout of the
+    gather (a warp a row at 51; 1, 2, 4 and 8 lanes a row of 4 channels
+    below 32); unaligned: ct starts 4 bytes past an 8-byte boundary (no
+    float2 pairs)."""
     b, p, k, n = 2, 1001, 10, 1001
-    idx = scatter_graph(gen, case, b, p, k, n)
+    idx = scatter_graph(gen, "random" if case == "unaligned" else case,
+                        b, p, k, n)
     w = torch.rand((b, p, k), generator=gen, device="cuda")
     ct = torch.randn((b, p, c), generator=gen, device="cuda")
+    if case == "unaligned":
+        ct = torch.empty(ct.numel() + 1, device="cuda")[1:].view(b, p, c).copy_(ct)
+        assert ct.is_contiguous() and ct.data_ptr() % 8 == 4
     got = scatter.scatter_add_weighted(idx, w, ct, n)
     want = scatter.scatter_add_weighted_ref(idx.cpu(), w.cpu(), ct.cpu(), n)
     assert same_bits(got, want)

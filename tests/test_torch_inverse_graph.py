@@ -12,7 +12,11 @@ csr_gather.cuh), held on the CPU:
   plain versions rests on it;
 - the port's route against the Pallas kernels in interpret mode, to the
   tolerance stated at each;
-- the inverse's independence of the other clouds of the batch.
+- the inverse's independence of the other clouds of the batch;
+- the build's route rule (``inverse_route``, the mirror of
+  ``scatter_add.cu::inverse_graph_route``): which shapes take the cluster
+  build, with its shared memory, and which the three-launch build, up to
+  the documented row limit.
 """
 
 import jax.numpy as jnp
@@ -308,3 +312,53 @@ def test_inverse_graph_clouds_are_independent():
         np.testing.assert_array_equal(whole.offsets[b].numpy(),
                                       one.offsets[0].numpy())
         np.testing.assert_array_equal(whole.src[b].numpy(), one.src[0].numpy())
+
+
+@pytest.mark.parametrize("what,p,k,n,smem", [
+    ("ShapeNet training and eval", 2048, 20, 2048, 62_608),
+    ("S3DIS, the smoothness loss (k=10)", 4096, 10, 4096, 104_592),
+    ("S3DIS, B4's graph (k=20)", 4096, 20, 4096, 125_072),
+    ("the classifier", 1024, 20, 1024, 31_376),
+    ("ShapeNet test views", 3000, 20, 3000, 91_644),
+    ("the largest square graph at k=20", 7616, 20, 7616, 232_432),
+    ("P != N", 333, 20, 300, 4 * (5 * 300 + 833 + 38 + 36)),
+    ("one slot", 1, 1, 1, 4 * (5 + 1 + 1 + 36)),
+])
+def test_inverse_route_cluster_shapes(what, p, k, n, smem):
+    """The shapes that take the one-launch cluster build, each with its
+    block's shared memory: 4 ((4 + 1) N + ceil(P k / 8) + ceil(N / 8) +
+    36) bytes (eight warps' 16-bit cursors, two a word; the block's
+    cursors; its places, its rows' offsets and the scan's sums), within
+    the 227 KB a block can use, and no workspace."""
+    assert scatter.inverse_route(p, k, n) == ("cluster", smem, 0)
+    assert smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("p,k,n,warps", [
+    (7617, 20, 7617, 7),        # just past the cluster build
+    (8192, 20, 8192, 7),        # the place blocks' warps shrink with N
+    (40, 20, 25_000, 2),
+    (100_000, 20, 1000, 8),     # few rows, too many slots for a cluster
+    (1000, 20, 58_112, 1),      # the documented row limit
+])
+def test_inverse_route_chunk_shapes(p, k, n, warps):
+    """Past the cluster build's shared memory, and up to 58,112 rows, the
+    three-launch build: its place blocks take as many warps' histograms
+    as 227 KB holds, and its workspace is ceil(P k / 4096) N ints per
+    cloud."""
+    route, smem, work = scatter.inverse_route(p, k, n)
+    assert route == "chunks"
+    assert smem == 4 * warps * n <= 227 * 1024
+    assert work == -(-(p * k) // 4096) * n
+
+
+def test_inverse_route_limits():
+    """No route past 58,112 rows or for an empty row count; the rule is
+    monotone in N at the presets' k: once the cluster build stops fitting,
+    no larger N takes it."""
+    assert scatter.inverse_route(10, 20, 58_113) == (None, 0, 0)
+    assert scatter.inverse_route(10, 20, 0) == (None, 0, 0)
+    for k in (10, 20):
+        routes = [scatter.inverse_route(n, k, n)[0] for n in range(6000, 10000, 7)]
+        last = max(i for i, r in enumerate(routes) if r == "cluster")
+        assert set(routes[last + 1:]) == {"chunks"}

@@ -40,6 +40,9 @@ SIGNATURES = {
     "conv_znmax_launch": [P, P, P, P, P, I, I, I, I, I, I, P, P, P],
     "knn_launch": [P, I, I, I, I, I, I, P, P, P, P],
     "inverse_graph_launch": [P, I, I, I, I, P, P, P, LL, P],
+    "inverse_graph_cluster_launch": [P, I, I, I, I, P, P, P],
+    "inverse_graph_chunks_launch": [P, I, I, I, I, P, P, P, LL, P],
+    "inverse_graph_route": [I, I, I, P, P],
     "scatter_add_launch": [P, P, P, P, P, LL] + [I] * 5 + [P, P],
     "conv_minmax_launch": [P] * 5 + [I] * 3 + [P] * 6 + [LL, P],
     "conv_nmax_launch": [P, P, P] + [I] * 5 + [P] * 11,

@@ -10,14 +10,25 @@
 // in f32 with __fadd_rn, and is written once. No float atomics, so the
 // result is the same bit for bit on every launch, and it is the order of
 // torch.Tensor.index_add_ on the CPU (index order), so it equals the plain
-// versions bit for bit.
+// versions bit for bit. The lane layout below changes which lane adds a
+// channel, never the order of its sum.
 //
-// Layout: L lanes per destination row, each lane owning channels
-// c0 + lane + L*i for i < CPL; rows wider than L*CPL loop over channel
-// chunks. L is one lane for C <= 4 (of 1, 2, 4 and 8 lanes a row, one was
-// the fastest for B13 at C=3 on an H100), else the smallest power of two
-// >= C, at most 32. Source slots are read Val::kUnroll at a time, so that
-// many rows' values are in flight before the adds, which keep their order.
+// Layout: L lanes per destination row, CPL channels a lane, chosen from C
+// alone.
+// - C >= 32: a warp a row (L = 32); lane l owns channels c0 + l + 32 i
+//   (i < CPL = 1, 2 or 4; wider rows loop over chunks of 32 CPL), so each
+//   load instruction reads 128 contiguous bytes of a source row.
+// - C < 32: a lane owns CPL = min(NARROW_CPL, the power of two >= C)
+//   contiguous channels, and a row takes L = the power of two >= C / CPL
+//   lanes: one lane at C <= 4 (of 1, 2, 4 and 8 lanes a row, one was the
+//   fastest for B13 at C=3 on an H100), 2 at 5-8, 4 at 9-16 (B6 at 14
+//   channels), 8 at 17-31. A lane reads its row's source index, and forms
+//   the value's row (B6: the slot's division by k and its weight), once
+//   per slot for all its channels; channel pairs load as one float2
+//   (bf16x2) where C is even and the base aligned. Before, rows of
+//   5-31 channels took one lane per channel, each repeating that work.
+// Source slots are read Val::kUnroll at a time, so that many rows' values
+// are in flight before the adds, which keep their order.
 
 #pragma once
 
@@ -35,6 +46,7 @@ extern "C" int inverse_graph_launch(const void* idx, int B, int P, int k,
 namespace {
 
 constexpr int GATHER_THREADS = 256;
+constexpr int NARROW_CPL = 4;  // channels a lane owns in rows of C < 32
 
 // s / d for 0 <= s < S by a multiply-high when S * d < 2^32 (exact there:
 // magic = ceil(2^32 / d) errs by less than s / 2^32 < 1 / d), else by a
@@ -52,29 +64,89 @@ inline FastDiv make_fastdiv(int d, long long S) {
   return FastDiv{ok ? (unsigned)(((1ULL << 32) + d - 1) / d) : 0u, d};
 }
 
-// Each value type names how many source slots a lane keeps in flight
-// (kUnroll): 8 for plain rows (faster at C=64 than 4 on an H100), 4 where a
-// value takes several loads.
+// Each value type gives, for a source slot, a Row whose at(c) is the
+// value of channel c and pair(c) those of channels c and c + 1 (read where
+// vec: C even and the base aligned for it), and names how many source
+// slots a lane keeps in flight (kUnroll): 8 for plain rows (faster at
+// C=64 than 4 on an H100), 4 where a value takes several loads.
 
 // f32 contributions [B, S, C]
 struct F32Val {
   static constexpr int kUnroll = 8;
   const float* g;
   int S, C;
-  __device__ __forceinline__ float operator()(int b, int s, int c) const {
-    return g[((size_t)b * S + s) * C + c];
+  bool vec;
+  struct Row {
+    const float* p;
+    __device__ __forceinline__ float at(int c) const { return p[c]; }
+    __device__ __forceinline__ float2 pair(int c) const {
+      return *reinterpret_cast<const float2*>(p + c);
+    }
+  };
+  __device__ __forceinline__ Row row(int b, int s) const {
+    return Row{g + ((size_t)b * S + s) * C};
   }
 };
+
+inline F32Val f32_val(const float* g, int S, int C) {
+  return F32Val{g, S, C, C % 2 == 0 && (uintptr_t)g % 8 == 0};
+}
 
 // bf16 contributions [B, S, C], widened exactly
 struct Bf16Val {
   static constexpr int kUnroll = 4;
   const __nv_bfloat16* g;
   int S, C;
-  __device__ __forceinline__ float operator()(int b, int s, int c) const {
-    return __bfloat162float(g[((size_t)b * S + s) * C + c]);
+  bool vec;
+  struct Row {
+    const __nv_bfloat16* p;
+    __device__ __forceinline__ float at(int c) const {
+      return __bfloat162float(p[c]);
+    }
+    __device__ __forceinline__ float2 pair(int c) const {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + c));
+    }
+  };
+  __device__ __forceinline__ Row row(int b, int s) const {
+    return Row{g + ((size_t)b * S + s) * C};
   }
 };
+
+inline Bf16Val bf16_val(const __nv_bfloat16* g, int S, int C) {
+  return Bf16Val{g, S, C, C % 2 == 0 && (uintptr_t)g % 4 == 0};
+}
+
+// this lane's CPL values of one source row in the chunk at c0 (0 past C)
+template <int L, int CPL, class Row>
+__device__ __forceinline__ void lane_values(const Row& r, int c0, int sub,
+                                            int C, bool vec,
+                                            float (&v)[CPL]) {
+  if constexpr (L == 32) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = c0 + sub + 32 * i;
+      v[i] = c < C ? r.at(c) : 0.f;
+    }
+  } else {
+    if constexpr (CPL % 2 == 0) {
+      if (vec) {  // c even and C even: c < C covers c + 1
+#pragma unroll
+        for (int i = 0; i < CPL; i += 2) {
+          const int c = c0 + sub * CPL + i;
+          const float2 x = c < C ? r.pair(c) : make_float2(0.f, 0.f);
+          v[i] = x.x;
+          v[i + 1] = x.y;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = c0 + sub * CPL + i;
+      v[i] = c < C ? r.at(c) : 0.f;
+    }
+  }
+}
 
 template <int L, int CPL, class Val>
 __global__ void __launch_bounds__(GATHER_THREADS) csr_gather_kernel(
@@ -101,28 +173,23 @@ __global__ void __launch_bounds__(GATHER_THREADS) csr_gather_kernel(
       for (int u = 0; u < UNROLL; ++u) s[u] = sb[q + u];
       float v[UNROLL][CPL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int c = c0 + sub + L * i;
-          v[u][i] = c < C ? val(b, s[u], c) : 0.f;
-        }
+      for (int u = 0; u < UNROLL; ++u) {
+        lane_values<L, CPL>(val.row(b, s[u]), c0, sub, C, val.vec, v[u]);
+      }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
         for (int i = 0; i < CPL; ++i) acc[i] = __fadd_rn(acc[i], v[u][i]);
     }
     for (; q < end; ++q) {
-      const int s = sb[q];
+      float v[CPL];
+      lane_values<L, CPL>(val.row(b, sb[q]), c0, sub, C, val.vec, v);
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = c0 + sub + L * i;
-        if (c < C) acc[i] = __fadd_rn(acc[i], val(b, s, c));
-      }
+      for (int i = 0; i < CPL; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
     }
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
-      const int c = c0 + sub + L * i;
+      const int c = L == 32 ? c0 + sub + 32 * i : c0 + sub * CPL + i;
       if (c < C) orow[c] = acc[i];
     }
   }
@@ -141,13 +208,17 @@ cudaError_t launch_gather(const int32_t* offsets, const int32_t* src, int B,
   return cudaGetLastError();
 }
 
-template <int L, class Val>
-cudaError_t gather_cpl(int cpl, const int32_t* offsets, const int32_t* src,
-                       int B, int N, int S, int C, Val val, float* out,
-                       cudaStream_t stream) {
-  if (cpl == 1) return launch_gather<L, 1>(offsets, src, B, N, S, C, val, out, stream);
-  if (cpl == 2) return launch_gather<L, 2>(offsets, src, B, N, S, C, val, out, stream);
-  return launch_gather<L, 4>(offsets, src, B, N, S, C, val, out, stream);
+// one lane a row, CPL halved down to cpl (a power of two <= NARROW_CPL)
+template <int CPL, class Val>
+cudaError_t one_lane(int cpl, const int32_t* offsets, const int32_t* src,
+                     int B, int N, int S, int C, Val val, float* out,
+                     cudaStream_t stream) {
+  if constexpr (CPL > 1) {
+    if (cpl < CPL) {
+      return one_lane<CPL / 2>(cpl, offsets, src, B, N, S, C, val, out, stream);
+    }
+  }
+  return launch_gather<1, CPL>(offsets, src, B, N, S, C, val, out, stream);
 }
 
 inline int pow2_at_least(int x) {
@@ -163,14 +234,20 @@ cudaError_t csr_gather(const int32_t* offsets, const int32_t* src, int B,
                        int N, int S, int C, Val val, float* out,
                        cudaStream_t stream) {
   if (C < 1) return cudaErrorInvalidValue;
-  const int lanes = C <= 4 ? 1 : C >= 32 ? 32 : pow2_at_least(C);
-  const int per = (C + lanes - 1) / lanes;
-  const int cpl = per >= 4 ? 4 : pow2_at_least(per);
-  switch (lanes) {
-    case 1: return gather_cpl<1>(cpl, offsets, src, B, N, S, C, val, out, stream);
-    case 8: return gather_cpl<8>(cpl, offsets, src, B, N, S, C, val, out, stream);
-    case 16: return gather_cpl<16>(cpl, offsets, src, B, N, S, C, val, out, stream);
-    default: return gather_cpl<32>(cpl, offsets, src, B, N, S, C, val, out, stream);
+  if (C >= 32) {
+    const int per = (C + 31) / 32;
+    if (per == 1) return launch_gather<32, 1>(offsets, src, B, N, S, C, val, out, stream);
+    if (per == 2) return launch_gather<32, 2>(offsets, src, B, N, S, C, val, out, stream);
+    return launch_gather<32, 4>(offsets, src, B, N, S, C, val, out, stream);
+  }
+  const int cpl = pow2_at_least(C) < NARROW_CPL ? pow2_at_least(C) : NARROW_CPL;
+  switch (pow2_at_least((C + cpl - 1) / cpl)) {  // lanes; > 1: cpl = NARROW_CPL
+    case 1: return one_lane<NARROW_CPL>(cpl, offsets, src, B, N, S, C, val, out, stream);
+    case 2: return launch_gather<2, NARROW_CPL>(offsets, src, B, N, S, C, val, out, stream);
+    case 4: return launch_gather<4, NARROW_CPL>(offsets, src, B, N, S, C, val, out, stream);
+    case 8: return launch_gather<8, NARROW_CPL>(offsets, src, B, N, S, C, val, out, stream);
+    case 16: return launch_gather<16, NARROW_CPL>(offsets, src, B, N, S, C, val, out, stream);
+    default: return launch_gather<32, NARROW_CPL>(offsets, src, B, N, S, C, val, out, stream);
   }
 }
 

@@ -104,10 +104,9 @@ __global__ void __launch_bounds__(THREADS) scatter_bn_du_kernel(
 // idx [B,P,k] int32; y [B,P,k,C] bf16; dense: dz [B,P,k,C] bf16 and sv [C]
 // f32 (q, asel null); sparse: q [B,P,C] f32 and asel [B,P,C] int32 (dz, sv
 // null); alpha/beta [C] f32; offsets [B,N+1] / src [B,P*k] int32: the
-// inverse of idx (scatter_add.cu), built first with build (work as for
-// inverse_graph_launch), else given (idx unused). dyb [B,P,k,C] bf16
-// scratch; dv [B,N,C] f32 and du [B,P,C] f32, written whole. Returns a
-// cudaError_t.
+// inverse of idx (scatter_add.cu), built first (work as for
+// inverse_graph_launch). dyb [B,P,k,C] bf16 scratch; dv [B,N,C] f32 and
+// du [B,P,C] f32, written whole. Returns a cudaError_t.
 extern "C" int scatter_bn_bwd_launch(const void* idx, void* offsets,
                                      void* src, void* work,
                                      long long work_elems, const void* y,
@@ -146,6 +145,6 @@ extern "C" int scatter_bn_bwd_launch(const void* idx, void* offsets,
   }
   const int S = P * k;
   return (int)csr_gather((const int32_t*)offsets, (const int32_t*)src, B, N,
-                         S, C, Bf16Val{(const __nv_bfloat16*)dyb, S, C},
+                         S, C, bf16_val((const __nv_bfloat16*)dyb, S, C),
                          (float*)dv, s);
 }

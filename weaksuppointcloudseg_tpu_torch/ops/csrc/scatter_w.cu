@@ -16,6 +16,12 @@
 // destination row sums __fmul_rn(w[p,j], ct[p,c]) over its source slots in
 // ascending order and is written once: no float atomics, the same bits on
 // every launch, and bit for bit the plain version's index_add_ of w * ct.
+// A source slot's Row (WVal) holds its point's ct row and its weight: the
+// division of the slot by k and the weight's load are paid once per lane
+// and slot, whatever its channels. At 51 channels (ShapeNet) a warp takes
+// a row, two channels a lane; at 14 (S3DIS) csr_gather's narrow layout
+// gives a row 4 lanes of 4 channels, read as float2 pairs (before, 16
+// lanes of one channel each repeated the division and the weight load).
 // Summing over the inverse of the transform stage's k=20 graph, whose
 // first 10 columns the smoothness loss uses, was tried and dropped: the
 // gather then visits twice the slots (0.298 ms on an H100 against 0.177
@@ -29,17 +35,27 @@
 
 namespace {
 
-// w [B, P, k] times ct [B, P, C] at a slot s = p * k + j
+// w [B, P, k] times ct [B, P, C] at a slot s = p * k + j: the slot's
+// division by k and its weight once per row, the product per channel
 struct WVal {
   static constexpr int kUnroll = 4;
   const float* w;
   const float* ct;
   int P, C;
   FastDiv by_k;
-  __device__ __forceinline__ float operator()(int b, int s, int c) const {
-    const int p = by_k(s);
-    const size_t bp = (size_t)b * P + p;
-    return __fmul_rn(w[(size_t)b * P * by_k.d + s], ct[bp * C + c]);
+  bool vec;
+  struct Row {
+    const float* p;
+    float w;
+    __device__ __forceinline__ float at(int c) const { return __fmul_rn(w, p[c]); }
+    __device__ __forceinline__ float2 pair(int c) const {
+      const float2 x = *reinterpret_cast<const float2*>(p + c);
+      return make_float2(__fmul_rn(w, x.x), __fmul_rn(w, x.y));
+    }
+  };
+  __device__ __forceinline__ Row row(int b, int s) const {
+    const size_t bp = (size_t)b * P + by_k(s);
+    return Row{ct + bp * C, w[(size_t)b * P * by_k.d + s]};
   }
 };
 
@@ -63,6 +79,7 @@ extern "C" int scatter_add_weighted_launch(const void* w, const void* ct,
   return (int)csr_gather((const int32_t*)offsets, (const int32_t*)src, B, N,
                          S, C,
                          WVal{(const float*)w, (const float*)ct, P, C,
-                              make_fastdiv(k, S)},
+                              make_fastdiv(k, S),
+                              C % 2 == 0 && (uintptr_t)ct % 8 == 0},
                          (float*)out, reinterpret_cast<cudaStream_t>(stream));
 }

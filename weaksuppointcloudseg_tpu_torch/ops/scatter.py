@@ -14,7 +14,9 @@ scatter_pallas.py:
   weighted gathers of the smoothness loss (ops/wgather.py).
 
 On the card the three are gathers over the graph's inverse
-(:func:`inverse_graph`, built by a kernel in ``scatter_add.cu``): every
+(:func:`inverse_graph`, built by ``scatter_add.cu``: one cluster launch
+per batch where a cloud's build fits in its cluster's shared memory, three
+launches over a global workspace past that, :func:`inverse_route`): every
 destination row sums its sources in ascending flat slot order ``p*k + j``
 and is written once, with no float atomics. That is the order in which
 ``index_add_`` sums on the CPU, so the kernels equal their plain versions
@@ -27,6 +29,7 @@ version on CPU tensors; any other device raises.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -71,55 +74,96 @@ def inverse_graph_ref(idx: torch.Tensor, n: int) -> InverseGraph:
     return InverseGraph(offsets.int(), torch.where(skipped, -1, src), k)
 
 
-_INV_CHUNK = 4096  # slots a block of the build takes (scatter_add.cu)
+# the build's constants (scatter_add.cu)
+_INV_CHUNK = 4096  # slots of a block of the three-launch build
+_CLUSTER, _CLUSTER_WARPS = 8, 8  # blocks of a cloud's cluster, warps a block
+_PLACE_WARPS = 8  # at most, of a place block of the three-launch build
+_SMEM_CAP = 227 * 1024  # shared memory a block can use
+
+
+@functools.lru_cache(maxsize=256)
+def inverse_route(p: int, k: int, n: int):
+    """(route, shared bytes, workspace ints per cloud) of the inverse build
+    of a [B, p, k] graph with ``n`` rows, by shape alone, as
+    ``scatter_add.cu::inverse_graph_route`` picks it: "cluster" (one
+    launch, one 8-block cluster per cloud) where a block's shared memory,
+    4 ((4 + 1) n + ceil(p k / 8) + ceil(n / 8) + 36) bytes, fits in 227
+    KB; else "chunks" (three launches over a global workspace of
+    ceil(p k / 4096) n ints per cloud) where n ints fit (n <= 58,112);
+    else None."""
+    s = p * k
+    if p < 0 or k < 0 or n < 1 or s >= 2**31:
+        return None, 0, 0
+    seg = max(1, -(-s // _CLUSTER))
+    words = (_CLUSTER_WARPS + 1) // 2  # the warps' cursors, two a word
+    cluster = 4 * ((words + 1) * n + seg + -(-n // _CLUSTER) + 36)
+    if cluster <= _SMEM_CAP:
+        return "cluster", cluster, 0
+    if 4 * n > _SMEM_CAP:
+        return None, 0, 0
+    w = _PLACE_WARPS
+    while w > 1 and 4 * w * n > _SMEM_CAP:
+        w -= 1
+    return "chunks", 4 * w * n, -(-s // _INV_CHUNK) * n
 
 
 def inverse_graph(idx: torch.Tensor, n: int) -> InverseGraph:
     """The inverse of the kNN graph ``idx`` (int32 [B, P, k]) with ``n``
-    destination rows: on CUDA the kernels (a stable counting sort over
-    chunks of slots; n up to about 58,000), on the CPU the plain
+    destination rows: on CUDA the build :func:`inverse_route` picks (a
+    stable counting sort; n up to 58,112), on the CPU the plain
     version."""
     if idx.device.type == "cpu":
         return inverse_graph_ref(idx, n)
     if idx.device.type != "cuda":
         raise ValueError(f"inverse_graph: unsupported device {idx.device}")
+    return _build_inverse(idx, n, None)
+
+
+def _build_inverse(idx: torch.Tensor, n: int, route) -> InverseGraph:
+    """The inverse on CUDA by ``route`` ("cluster" or "chunks", each where
+    it takes the shape), or by the route the launcher picks (None)."""
     b, p, k = idx.shape
     dev = idx.device
     _build.check_operand(idx, "idx", torch.int32, dev, (b, p, k))
-    inv, work = _alloc_inverse(b, p, k, n, dev)
+    buf, args = _inverse_args(idx, n, route)
     lib = _build.library()
     with torch.cuda.device(dev):
-        code = lib.inverse_graph_launch(idx.data_ptr(), b, p, k, n,
-                                        inv.offsets.data_ptr(),
-                                        inv.src.data_ptr(), work.data_ptr(),
-                                        work.numel(), _build.stream_ptr(dev))
+        stream = _build.stream_ptr(dev)
+        if route == "cluster":
+            code = lib.inverse_graph_cluster_launch(args[0], b, p, k, n,
+                                                    *args[1:3], stream)
+        elif route == "chunks":
+            code = lib.inverse_graph_chunks_launch(args[0], b, p, k, n,
+                                                   *args[1:], stream)
+        else:
+            code = lib.inverse_graph_launch(args[0], b, p, k, n, *args[1:],
+                                            stream)
     _build.check(code, "inverse_graph")
     inverse_graph.launches += 1
-    return inv
+    n_off = b * (n + 1)
+    return InverseGraph(buf[:n_off].view(b, n + 1),
+                        buf[n_off:n_off + b * p * k].view(b, p * k), k)
 
 
-def _alloc_inverse(b: int, p: int, k: int, n: int, dev):
-    """An unfilled inverse of a [b, p, k] graph and the build's workspace
-    (per chunk of slots, its counts and then its cursors for every row),
-    in one allocation."""
-    n_off, n_src = b * (n + 1), b * p * k
-    buf = torch.empty(n_off + n_src + b * -(-(p * k) // _INV_CHUNK) * n,
-                      dtype=torch.int32, device=dev)
-    return (InverseGraph(buf[:n_off].view(b, n + 1),
-                         buf[n_off:n_off + n_src].view(b, p * k), k),
-            buf[n_off + n_src:])
-
-
-def _inverse_args(idx: torch.Tensor, n: int):
-    """(the inverse's buffers, the launch arguments idx, offsets, src,
-    workspace and its length) of a kernel that builds the inverse of
-    ``idx`` (int32 [B, P, k] on CUDA) and then sums over it. The caller
-    holds the buffers until it has launched (freed earlier, their memory
-    could pass to its output)."""
+def _inverse_args(idx: torch.Tensor, n: int, route=None):
+    """(one buffer for the inverse of ``idx`` (int32 [B, P, k] on CUDA):
+    offsets [B, n+1], src [B, P*k] and ``route``'s workspace (the
+    three-launch build's counts and then cursors per chunk of slots and
+    row; none for the cluster build; None: the route the shape picks),
+    and the launch arguments idx, offsets, src, workspace and its length
+    as pointers into it). The caller holds the buffer until it has
+    launched (freed earlier, its memory could pass to its output)."""
     b, p, k = idx.shape
-    inv, work = _alloc_inverse(b, p, k, n, idx.device)
-    return (inv, work), (idx.data_ptr(), inv.offsets.data_ptr(),
-                         inv.src.data_ptr(), work.data_ptr(), work.numel())
+    n_off, n_src = b * (n + 1), b * p * k
+    if route is None:
+        n_work = b * inverse_route(p, k, n)[2]
+    else:
+        n_work = b * -(-(p * k) // _INV_CHUNK) * n if route == "chunks" else 0
+    buf = torch.empty(n_off + n_src + n_work, dtype=torch.int32,
+                      device=idx.device)
+    ptr = buf.data_ptr()
+    return buf, (idx.data_ptr(), ptr, ptr + 4 * n_off,
+                 ptr + 4 * (n_off + n_src), n_work)
 
 
 def gather_sum_ref(inv: InverseGraph, vals: torch.Tensor) -> torch.Tensor:
