@@ -87,7 +87,7 @@ constexpr int SCAN_THREADS = 1024;
 constexpr int MAX_PLACE_WARPS = 8;
 constexpr int PREFETCH = 4;  // slot loads a thread keeps in flight
 constexpr int CLUSTER = 8;   // blocks of a cloud's cluster (portable size)
-constexpr int CLUSTER_WARPS = 8;  // warps (and histograms) of each block
+constexpr int CLUSTER_WARPS = 8;  // warps of each block, two to a counter word
 constexpr size_t SMEM_CAP = 227 * 1024;  // shared memory a block can use
 
 // the lanes whose key equals this lane's (keys below 2^16): one ballot per

@@ -20,8 +20,7 @@
 // division of the slot by k and the weight's load are paid once per lane
 // and slot, whatever its channels. At 51 channels (ShapeNet) a warp takes
 // a row, two channels a lane; at 14 (S3DIS) csr_gather's narrow layout
-// gives a row 4 lanes of 4 channels, read as float2 pairs (before, 16
-// lanes of one channel each repeated the division and the weight load).
+// gives a row 4 lanes of 4 channels, read as float2 pairs.
 // Summing over the inverse of the transform stage's k=20 graph, whose
 // first 10 columns the smoothness loss uses, was tried and dropped: the
 // gather then visits twice the slots (0.298 ms on an H100 against 0.177

@@ -77,6 +77,7 @@ def inverse_graph_ref(idx: torch.Tensor, n: int) -> InverseGraph:
 # the build's constants (scatter_add.cu)
 _INV_CHUNK = 4096  # slots of a block of the three-launch build
 _CLUSTER, _CLUSTER_WARPS = 8, 8  # blocks of a cloud's cluster, warps a block
+_CLUSTER_MISC = 36  # ints of a cluster block's scan sums and scalars
 _PLACE_WARPS = 8  # at most, of a place block of the three-launch build
 _SMEM_CAP = 227 * 1024  # shared memory a block can use
 
@@ -96,7 +97,7 @@ def inverse_route(p: int, k: int, n: int):
         return None, 0, 0
     seg = max(1, -(-s // _CLUSTER))
     words = (_CLUSTER_WARPS + 1) // 2  # the warps' cursors, two a word
-    cluster = 4 * ((words + 1) * n + seg + -(-n // _CLUSTER) + 36)
+    cluster = 4 * ((words + 1) * n + seg + -(-n // _CLUSTER) + _CLUSTER_MISC)
     if cluster <= _SMEM_CAP:
         return "cluster", cluster, 0
     if 4 * n > _SMEM_CAP:
