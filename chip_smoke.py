@@ -106,7 +106,8 @@ persistent blocks bit for bit B3 on one block per SM (ROADMAP C17),
 B14 (the bf16 row gather) to its plain version
 bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
-skipped, and B11 (the first conv on a given graph) to B1's output at
+skipped and the work plan, and B10 on that room with room_label_prop's pad
+blocks, and B11 (the first conv on a given graph) to B1's output at
 B1's own graph and to its plain version at the static stages' shapes.
 Phases 4, 6, 7, 9 (static ShapeNet) and 12 (bf16 fused classifier) repeat
 one training step from the same state and require the same bits in every
@@ -1450,6 +1451,19 @@ def check_knn_wgather(gen, report):
 LN, LK = 131072, 13  # one room of bench.py's s3dis_room_lp_131072, 13 classes
 
 
+def padded_bench_room(n: int, blocks: int = 7, block: int = 4096):
+    """bench_room(n) with train/loop.py::room_label_prop's padding appended:
+    ``blocks`` blocks of ``block`` identical points 2 m beyond the room's
+    far corner, rgb 0 (the 7 pad blocks that room_label_prop gives a
+    25-block room such as phase 8's Area_5_office_2). numpy (xyz, rgb)
+    [1, n + blocks * block, 3]."""
+    xyz, _, rgb = bench_room(n)
+    pad = blocks * block
+    pxyz = np.concatenate([xyz, np.broadcast_to(xyz[0].max(0) + 2.0, (1, pad, 3))], 1)
+    prgb = np.concatenate([rgb, np.zeros((1, pad, 3), np.float32)], 1)
+    return pxyz.astype(np.float32), prgb.astype(np.float32)
+
+
 def check_affinity(gen, report):
     """B10 and B17 against their plain versions (every pair, row tiles of
     cuBLAS f32) at one room of bench.py's s3dis_room_lp_131072 (B=1,
@@ -1458,11 +1472,17 @@ def check_affinity(gen, report):
     (label_prop.check_gram_cancellation: 4 ulps of max |f|^2, which
     exp(-d^2) turns into that relative error on each affinity; kernel and
     plain version each round their own Gram) plus 1e-5 of sum_j W_ij |u_j|
-    (expf's 2 ulp, another summation order), plus exp(-30) sum |u| for the
-    skipped pairs. B10 is also held there at the degree pass's K=1 on
-    u = ones. Prints the share of tile pairs skipped (must be > 0) and the
-    kernel without skipping. The kernel times take the tile mask built
-    once, as the room LP does (its build is timed on its own)."""
+    (the exponential's and the apply's rounding, another summation order),
+    plus exp(-30) sum |u| for the skipped pairs. B10 is also held there at
+    the degree pass's K=1 on u = ones, and at K=13 on the same room with
+    room_label_prop's 7 pad blocks appended (heavy row tiles: every pad
+    tile keeps every other). Prints the share of tile pairs skipped (must
+    be > 0), the work plan (kept tiles per row tile, items, workspace,
+    build time), the kernel without skipping, and each time between
+    events (``timed_ms``) beside the device time with the host's launches
+    hidden (``device_ms``) and its split by kernel. The kernel times take
+    the mask and plan built once, as the room LP does (their builds are
+    timed on their own)."""
     import torch
 
     from weaksuppointcloudseg_tpu_torch.ops import affinity
@@ -1474,16 +1494,38 @@ def check_affinity(gen, report):
     ut = torch.randn((1, LK, LN), generator=gen, device="cuda")
     bound_rel = label_prop.check_gram_cancellation(feat_t.transpose(1, 2))
     mask = affinity.tile_mask(feat_t)
+    plan = affinity.tile_plan(mask)
     ordered = float(mask.sum().item()) * affinity.TILE ** 2
     skipped = 1.0 - mask.float().mean().item()
     require(skipped > 0, "room LP: no tile pair skipped")
     mask_ms = timed_ms(lambda: affinity.tile_mask(feat_t))
+    plan_ms = timed_ms(lambda: affinity.tile_plan(mask))
+    parts = ("affinity_prep", "affinity_items", "affinity_combine")
 
-    def tolerance(ref, feat, u):
+    def plan_line(mask, plan, k):
+        kept = mask.sum(2).float()
+        return (f"kept tiles per row tile mean {kept.mean().item():.1f} max "
+                f"{int(kept.max().item())}; {plan.n_items} items of at most "
+                f"{affinity.SEGMENT_TILES} tiles for {mask.shape[1]} row tiles, "
+                f"workspace {plan.n_items * k * affinity.TILE * 4 / 2**20:.1f} MiB")
+
+    def tolerance(ref, feat, u, bound_rel=bound_rel):
         want, mags = ref(feat, u), ref(feat, u.abs())
         tol = (2 * bound_rel + 1e-5) * mags + float(np.exp(-30.0)) * u.abs().sum().item()
         return want, mags, tol
 
+    def times(fn):
+        split = kernel_device_ms(fn, parts)
+        return (timed_ms(fn), device_ms(fn), split)
+
+    def time_text(t):
+        return (f"kernel {t[0]:.3f} ms between events, {t[1]:.4f} ms on the "
+                f"device (prep {t[2][0]:.4f} + items {t[2][1]:.4f} + combine "
+                f"{t[2][2]:.4f})")
+
+    print(f"  B10/B17 work plan of the bench room: {plan_line(mask, plan, LK)}; "
+          f"tile mask build {mask_ms:.3f} ms, plan build {plan_ms:.3f} ms (one "
+          f"host sync)")
     # the degree pass's launch, K=1 on u = ones, as label_propagation_matfree
     # makes it (the kernel's K=1 instance)
     ones = torch.ones((1, 1, LN), device="cuda")
@@ -1491,11 +1533,11 @@ def check_affinity(gen, report):
     want, _, tol = tolerance(affinity.affinity_matvec_t_ref, feat_t, ones)
     err = ((got - want).abs() / tol).max().item()
     require(err <= 1.0, f"B10 degree pass (K=1): {err:.3f} of the tolerance")
-    ms_deg = timed_ms(lambda: affinity.affinity_matvec_t(feat_t, ones, mask=mask))
+    t_deg = times(lambda: affinity.affinity_matvec_t(feat_t, ones, plan=plan))
     print(f"  affinity_matvec_t (B10) degree pass B=1 N={LN} K=1 (u = ones): "
           f"max rel err {((got - want).abs() / want).max().item():.2e} "
           f"({err:.3f} of the tolerance), degrees {want.min().item():.3f}.."
-          f"{want.max().item():.1f}; kernel {ms_deg:.3f} ms")
+          f"{want.max().item():.1f}; {time_text(t_deg)}")
     del got, want, tol
     for name, transposed in (("affinity_matvec_t (B10)", True),
                              ("affinity_matvec (B17)", False)):
@@ -1506,35 +1548,64 @@ def check_affinity(gen, report):
             feat, u = feat_t.transpose(1, 2).contiguous(), ut.transpose(1, 2).contiguous()
             fn, ref = affinity.affinity_matvec, affinity.affinity_matvec_ref
         got = fn(feat, u)
-        every = affinity.tile_mask(feat_t, None)
-        full = fn(feat, u, mask=every)
+        again = fn(feat, u, plan=plan)
+        every = affinity.tile_plan(affinity.tile_mask(feat_t, None))
+        full = fn(feat, u, plan=every)
         want, mags, tol = tolerance(ref, feat, u)
         torch.cuda.synchronize()
+        require(torch.equal(got, again), f"{name}: two launches differ")
         err = ((got - want).abs() / tol).max().item()
         err_full = ((full - want).abs() / tol).max().item()
         share = ((got - want).abs() / mags).max().item()
         max_err = (got - want).abs().max().item()
-        del want, mags, full
+        del want, mags, full, again
         require(err <= 1.0 and err_full <= 1.0,
                 f"{name}: {err:.3f} / {err_full:.3f} of the tolerance")
-        ms = timed_ms(lambda: fn(feat, u, mask=mask))
-        ms_full = timed_ms(lambda: fn(feat, u, mask=every), reps=3)
+        t = times(lambda: fn(feat, u, plan=plan))
+        ms_full = device_ms(lambda: fn(feat, u, plan=every), reps=3)
+        del every
         plain_ms = timed_ms(lambda: ref(feat, u), reps=3, warmup=1)
         io = nbytes(feat, u, got)
         bnd = bound(affinity_flops(1, LN, 6, LK, ordered), "f32", io)
         bnd_full = bound(affinity_flops(1, LN, 6, LK, float(LN) ** 2), "f32", io)
         print(f"  {name} B=1 N={LN} F=6 K={LK} (bench room, Morton order): "
               f"max err {share:.2e} of sum |W||u| ({err:.3f} of the "
-              f"tolerance, Gram bound {bound_rel:.2e}); tile pairs skipped "
-              f"{100 * skipped:.2f}%; kernel {ms:.3f} ms, without skipping "
-              f"{ms_full:.3f} ms, plain {plain_ms:.3f} ms, tile mask build "
-              f"{mask_ms:.3f} ms; bound over the "
-              f"surviving pairs {bnd[0]:.4f} ms ({bnd[1]}), every pair "
-              f"{bnd_full[0]:.4f} ms; {100 * bnd[0] / ms:.1f}% of bound")
+              f"tolerance, Gram bound {bound_rel:.2e}); two launches bit for "
+              f"bit; tile pairs skipped {100 * skipped:.2f}%; {time_text(t)}; "
+              f"without skipping {ms_full:.3f} ms on the device, plain "
+              f"{plain_ms:.3f} ms; bound over the surviving pairs "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), every pair {bnd_full[0]:.4f} ms; "
+              f"{100 * bnd[0] / t[0]:.1f}% of bound ({100 * bnd[0] / t[1]:.1f}% "
+              f"on the device)")
         report.append(kernel_row(
             name, "weaksuppointcloudseg_tpu_torch/ops/csrc/affinity.cu",
             "weaksuppointcloudseg_tpu/ops/affinity_pallas.py:"
-            + ("272" if transposed else "171"), max_err, ms, plain_ms, bnd))
+            + ("272" if transposed else "171"), max_err, t[0], plain_ms, bnd))
+        del got
+
+    # the bench room with room_label_prop's pad blocks, B10 at the CG's K
+    pxyz, prgb = padded_bench_room(LN)
+    pfeat, _ = label_prop.matfree_features(torch.from_numpy(pxyz).cuda(),
+                                           torch.from_numpy(prgb).cuda())
+    pn = pfeat.shape[2]
+    pu = torch.randn((1, LK, pn), generator=gen, device="cuda")
+    pmask = affinity.tile_mask(pfeat)
+    pplan = affinity.tile_plan(pmask)
+    got = affinity.affinity_matvec_t(pfeat, pu, plan=pplan)
+    want, _, tol = tolerance(
+        affinity.affinity_matvec_t_ref, pfeat, pu,
+        label_prop.check_gram_cancellation(pfeat.transpose(1, 2)))
+    err = ((got - want).abs() / tol).max().item()
+    require(err <= 1.0, f"B10 padded room: {err:.3f} of the tolerance")
+    del want, tol
+    t = times(lambda: affinity.affinity_matvec_t(pfeat, pu, plan=pplan))
+    pbnd = bound(affinity_flops(1, pn, 6, LK,
+                                float(pmask.sum().item()) * affinity.TILE ** 2),
+                 "f32", nbytes(pfeat, pu, got))
+    print(f"  affinity_matvec_t (B10) bench room + 7 pad blocks B=1 N={pn} "
+          f"K={LK}: {err:.3f} of the tolerance; {plan_line(pmask, pplan, LK)}; "
+          f"{time_text(t)}; bound {pbnd[0]:.4f} ms ({pbnd[1]})")
+    del got, pfeat, pu, pmask, pplan
     torch.cuda.empty_cache()
 
 
@@ -3666,7 +3737,7 @@ def device_breakdown(fn, card: str, runs: int = 3, top: int = 8,
 KERNEL_GROUPS = (
     ("knn_edge_pre_kernel", "B11"), ("knn_edge_kernel", "B1"), ("conv_zmax", "B7"), ("conv_znmax", "B8"),
     ("KnnTileOut", "B12"), ("WGatherOut", "B9"), ("GatherTileOut", "B15"),
-    ("affinity_kernel", "B10"),
+    ("affinity_", "B10"),
     ("gather_rows_kernel", "B14"),
     ("sqnorm_kernel", "B1/B9/B12/B15 norms"), ("wgather_pre", "B6 gather"),
     ("inverse_", "inverse graphs"), ("WVal", "B6 scatter"),

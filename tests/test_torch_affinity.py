@@ -140,6 +140,116 @@ def test_skipped_pairs_are_below_the_cutoff():
     torch.testing.assert_close(hi[0, :, -1], last.amax(1), rtol=0, atol=0)
 
 
+# ----------------------------------------------------------- work plan
+
+def plan_items(plan):
+    """[(row tile, [column tiles])] of every item, in item order."""
+    cols = plan.cols.tolist()
+    start = plan.item_start.tolist()
+    return [(r, cols[start[q]:start[q + 1]])
+            for q, r in enumerate(plan.item_row.tolist())]
+
+
+def numpy_items(mask, seg):
+    """The plan's items built in numpy: each row tile's kept column tiles,
+    ascending, in runs of at most ``seg``; one empty item for a row tile
+    that keeps none."""
+    b, nt, _ = mask.shape
+    items = []
+    for r, row in enumerate(mask.reshape(b * nt, nt)):
+        kept = np.flatnonzero(row).tolist()
+        items += [(r, kept[s:s + seg]) for s in range(0, len(kept), seg)] or [(r, [])]
+    return items
+
+
+@pytest.mark.parametrize("seg", [1, 3, 8])
+def test_tile_plan_matches_numpy(monkeypatch, seg):
+    """tile_plan against a numpy construction on the tile mask of two
+    samples of clustered features with a ragged last tile, one row tile
+    keeping every tile and one keeping none: every kept (row tile, column
+    tile) appears exactly once and no skipped one does, ascending, at most
+    SEGMENT_TILES an item; row_items points at each row tile's first item."""
+    monkeypatch.setattr(affinity, "SEGMENT_TILES", seg)
+    rng = np.random.default_rng(11)
+    feat_t = np.concatenate([clustered_feat_t(rng, clusters=8, per=160)[:, :, :1250]
+                             for _ in range(2)])  # 10 tiles, the last of 98 points
+    mask = affinity.tile_mask(torch.tensor(feat_t))
+    mask[0, 3] = 1  # keeps every tile
+    mask[1, 5] = 0  # keeps none
+    m = mask.numpy()
+    assert 0.2 < m.mean() < 0.9
+    plan = affinity.tile_plan(mask)
+    assert (plan.batch, plan.n_tiles) == (2, 10)
+    items = plan_items(plan)
+    assert items == numpy_items(m, seg)
+    assert plan.n_items == len(items)
+    assert all(c == sorted(c) and len(c) <= seg for _, c in items)
+    kept = sorted((r, c) for r, cs in items for c in cs)
+    want = sorted(zip(*np.nonzero(m.reshape(20, 10))))
+    assert kept == [(int(r), int(c)) for r, c in want]
+    rows = [r for r, _ in items]
+    assert plan.row_items.tolist() == [rows.index(r) for r in range(20)] + [len(rows)]
+    for t in plan[:4]:
+        assert t.dtype == torch.int32
+
+
+def plan_matvec_t(feat_t, ut, plan):
+    """B10's sum over the plan, emulated in torch: each item's partial
+    W[rows, its column tiles] @ u, then each row tile's partials added in
+    item order (the kernel's segmented sum; the order inside an item is
+    the bmm's)."""
+    b, _, n = feat_t.shape
+    tile, nt = affinity.TILE, plan.n_tiles
+    f = feat_t.transpose(1, 2)
+    sq = (f * f).sum(-1)
+    out = torch.zeros_like(ut)
+    done = set()
+    for q, (rid, cs) in enumerate(plan_items(plan)):
+        bi, i = divmod(rid, nt)
+        rows = torch.arange(i * tile, min(n, (i + 1) * tile))
+        cols = torch.cat([torch.arange(c * tile, min(n, (c + 1) * tile)) for c in cs]
+                         or [torch.zeros(0, dtype=torch.long)])
+        d = sq[bi, rows, None] - 2.0 * f[bi, rows] @ f[bi, cols].T + sq[bi, None, cols]
+        part = ut[bi][:, cols] @ torch.exp(-torch.clamp_min(d, 0.0)).T
+        first = rid not in done
+        done.add(rid)
+        out[bi][:, rows] = part if first else out[bi][:, rows] + part
+    return out
+
+
+def plan_errors(got, feat_t, ut):
+    """max |got - plain| per element over the kernel's tolerance
+    (tests/test_torch_cuda.py::affinity_errors, chip_smoke.py::
+    check_affinity): twice the Gram's cancellation bound plus 1e-5 of
+    sum_j W_ij |u_j|, plus exp(-30) sum |u| for the skipped pairs."""
+    want = affinity.affinity_matvec_t_ref(feat_t, ut)
+    mags = affinity.affinity_matvec_t_ref(feat_t, ut.abs())
+    bound = label_prop.check_gram_cancellation(feat_t.transpose(1, 2))
+    skipped = np.exp(-30.0) * ut.abs().sum((1, 2), keepdim=True)
+    tol = (2 * bound + 1e-5) * mags + skipped + 1e-30
+    return float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("pads", [0, 1280])
+def test_plan_segmented_sum_matches_the_plain_version(pads):
+    """The plan's segmented sum against affinity_matvec_t_ref on a room's
+    features as the LP makes them (matfree_features), alone and with a
+    block of identical pad points 2 m outside it (room_label_prop's pads:
+    ten tiles that keep each other at affinity 1, so their row tiles take
+    two items or more)."""
+    rng = np.random.default_rng(12)
+    xyz, _, rgb = room_cloud(rng, 1000)
+    if pads:
+        xyz = np.concatenate([xyz, np.broadcast_to(xyz[0].max(0) + 2.0, (1, pads, 3))], 1)
+        rgb = np.concatenate([rgb, np.zeros((1, pads, 3), np.float32)], 1)
+    feat_t, _ = label_prop.matfree_features(torch.tensor(xyz), torch.tensor(rgb))
+    ut = torch.tensor(rng.standard_normal((1, 13, feat_t.shape[2])).astype(np.float32))
+    plan = affinity.tile_plan(affinity.tile_mask(feat_t))
+    heavy = np.bincount(plan.item_row.numpy()).max()
+    assert heavy >= (2 if pads else 1)
+    assert plan_errors(plan_matvec_t(feat_t, ut, plan), feat_t, ut) <= 1.0
+
+
 # ------------------------------------------------------------------- CG
 
 def test_preconditioned_cg_matches_jax():
@@ -223,19 +333,25 @@ def test_matfree_lp_matches_jax(b, n):
 
 def test_matfree_lp_builds_the_tile_mask_once(monkeypatch):
     """The CG applies W of the same features in every matvec, so the LP
-    builds B10's tile mask once (matfree_features' sorted features) and
-    hands it to every launch."""
-    calls = []
-    mask_fn = affinity.skip_mask_t
+    builds B10's tile mask and its work plan once (matfree_features'
+    sorted features) and hands the plan to every launch."""
+    calls, plans = [], []
+    mask_fn, plan_fn = affinity.skip_mask_t, affinity.tile_plan
 
     def counting(*a, **kw):
         calls.append(1)
         return mask_fn(*a, **kw)
+
+    def counting_plan(*a, **kw):
+        plans.append(1)
+        return plan_fn(*a, **kw)
     monkeypatch.setattr(affinity, "skip_mask_t", counting)
+    monkeypatch.setattr(affinity, "tile_plan", counting_plan)
+    monkeypatch.setattr(label_prop, "tile_plan", counting_plan)
     xyz, g, rgb = room_cloud(np.random.default_rng(10), 700)
     y = label_prop.propagate_batch(torch.tensor(xyz), torch.tensor(g),
                                    torch.tensor(rgb), solver="cg_matfree")
-    assert len(calls) == 1 and y.shape == (1, 700, 13)
+    assert len(calls) == 1 and len(plans) == 1 and y.shape == (1, 700, 13)
 
 
 def pad_room(xyz, g, rgb, offset, blocks=8):

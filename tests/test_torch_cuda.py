@@ -922,6 +922,58 @@ def test_affinity_kernel_refuses(gen):
         affinity.affinity_matvec_t(feat_t.cpu(), torch.ones((1, 2, 300), device="cuda"))
 
 
+def heavy_rows(gen, kind):
+    """Centred, Morton-sorted LP features [1, 6, N] whose row tiles take
+    several work items of the plan: "identical" a 1000-point room slab
+    with 1600 copies of one point inside it (13 tiles at affinity 1 to
+    each other and to their neighbours), "padded" a 1500-point room slab
+    with room_label_prop's pads, 1792 identical points 2 m beyond the
+    room's far corner (train/loop.py::room_label_prop)."""
+    n = 1000 if kind == "identical" else 1500
+    xyz = torch.rand((n, 3), generator=gen, device="cuda") * torch.tensor(
+        [2.0, 1.0, 0.3], device="cuda")
+    rgb = torch.rand((n, 3), generator=gen, device="cuda")
+    if kind == "identical":
+        copies, pt, col = 1600, xyz[0], rgb[0]
+    else:
+        copies, pt, col = 1792, xyz.amax(0) + 2.0, torch.zeros(3, device="cuda")
+    xyz = torch.cat([xyz, pt.expand(copies, 3)])[None]
+    rgb = torch.cat([rgb, col.expand(copies, 3)])[None]
+    feat_t, _ = label_prop.matfree_features(xyz, rgb)
+    return feat_t
+
+
+@pytest.mark.parametrize("kind", ["identical", "padded"])
+@pytest.mark.parametrize("k", [1, 13, 16, 50])
+@pytest.mark.parametrize("transposed", [True, False])
+def test_affinity_kernel_heavy_rows(gen, kind, k, transposed):
+    """B10 and B17 on row tiles that the plan cuts into many items
+    (tests/test_torch_affinity.py holds the plan itself on the CPU),
+    against their plain versions under test_affinity_kernel's tolerance,
+    at the degree pass's K=1, the CG's 13, one full group of 16 and
+    ShapeNet's 50 (four launches): two launches give the same bits, and
+    a given plan the bits of the wrapper's own."""
+    feat_t = heavy_rows(gen, kind)
+    n = feat_t.shape[2]
+    plan = affinity.tile_plan(affinity.tile_mask(feat_t))
+    items = torch.bincount(plan.item_row.long())
+    assert items.max().item() >= 2 and plan.n_items > plan.n_tiles
+    ut = torch.randn((1, k, n), generator=gen, device="cuda")
+    if transposed:
+        feat, u, fn = feat_t, ut, affinity.affinity_matvec_t
+    else:
+        feat, u = feat_t.transpose(1, 2).contiguous(), ut.transpose(1, 2).contiguous()
+        fn = affinity.affinity_matvec
+    before = fn.launches
+    got = fn(feat, u, plan=plan)
+    again = fn(feat, u, plan=plan)
+    own = fn(feat, u)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3 * -(-k // 16) and got.shape == u.shape
+    assert torch.equal(got, again) and torch.equal(got, own)
+    assert affinity_errors(got, feat, u, transposed) <= 1.0
+
+
 def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
     """label_propagation_matfree on the card (B10, tile skipping) against
     the CPU's plain version on 3000 points of a dense 1 x 0.6 x 0.2 m slab
@@ -936,8 +988,8 @@ def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
            + 0.03 * torch.randn((1, 3000, 3), generator=gen, device="cuda"))
     g = torch.softmax(torch.randn((1, 3000, 13), generator=gen, device="cuda")
                       * 3.0, -1)
-    calls, masks = [], []
-    cg, mask_fn = label_prop._cg, affinity.skip_mask_t
+    calls, masks, plans = [], [], []
+    cg, mask_fn, plan_fn = label_prop._cg, affinity.skip_mask_t, affinity.tile_plan
 
     def counting_cg(matvec, *a, **kw):
         def mv(v):
@@ -948,13 +1000,18 @@ def test_matfree_lp_on_cuda_matches_cpu(gen, monkeypatch):
     def counting_mask(*a, **kw):
         masks.append(1)
         return mask_fn(*a, **kw)
+    def counting_plan(*a, **kw):
+        plans.append(1)
+        return plan_fn(*a, **kw)
     monkeypatch.setattr(label_prop, "_cg", counting_cg)
     monkeypatch.setattr(affinity, "skip_mask_t", counting_mask)
+    monkeypatch.setattr(affinity, "tile_plan", counting_plan)
+    monkeypatch.setattr(label_prop, "tile_plan", counting_plan)
     before = affinity.affinity_matvec_t.launches
     got = label_prop.propagate_batch(xyz, g, rgb, solver="cg_matfree")
     torch.cuda.synchronize()
     assert affinity.affinity_matvec_t.launches - before == 1 + len(calls) > 1
-    assert len(masks) == 1
+    assert len(masks) == 1 and len(plans) == 1
     want = label_prop.propagate_batch(xyz.cpu(), g.cpu(), rgb.cpu(),
                                       solver="cg_matfree")
     for y in (got.cpu(), want):

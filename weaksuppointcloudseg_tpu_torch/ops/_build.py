@@ -52,7 +52,7 @@ SIGNATURES = {
     "wgather_pre_launch": [P, P, P, I, I, I, I, P, P],
     "scatter_add_weighted_launch": [P] * 6 + [LL] + [I] * 5 + [P, P],
     "knn_wgather_launch": [P, P] + [I] * 7 + [F] + [P] * 5,
-    "affinity_matvec_launch": [P, P, P, I, I, I, I, I, P, P],
+    "affinity_matvec_launch": [P] * 6 + [I] * 6 + [P] * 4,
     "gather_rows_launch": [P, P, I, I, I, I, I, P, P],
     "knn_gather_launch": [P, P] + [I] * 7 + [P] * 5,
 }

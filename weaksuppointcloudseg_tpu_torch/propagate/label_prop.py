@@ -37,6 +37,7 @@ from weaksuppointcloudseg_tpu_torch.ops.affinity import (
     affinity_matvec_t,
     morton_order,
     tile_mask,
+    tile_plan,
 )
 from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
     laplacian_xyz_rgb,
@@ -200,23 +201,23 @@ def label_propagation_matfree(
     every matvec (kernel B10), so memory stays O(N). xyz [B,N,Cx], g
     [B,N,K] probabilities, rgb [B,N,Cr] -> Y_prob [B, N, K] f32.
 
-    The features are :func:`matfree_features`; B10's tile mask is built
-    once for them. The CG runs in the Morton order in the [B, K, N] layout,
-    Jacobi-preconditioned (M = v / diag), and the result is unsorted at the
-    end. Padding the CG to tiles, as the reference's kernel needs, is not
+    The features are :func:`matfree_features`; B10's tile mask and its
+    work plan are built once for them and passed to every launch. The CG
+    runs in the Morton order in the [B, K, N] layout, Jacobi-preconditioned
+    (M = v / diag), and the result is unsorted at the end. Padding the CG to tiles, as the reference's kernel needs, is not
     needed here.
     """
     feat_t, order = matfree_features(xyz, rgb, xyz_bandwidth=xyz_bandwidth,
                                      rgb_bandwidth=rgb_bandwidth)
-    mask = tile_mask(feat_t)
+    plan = tile_plan(tile_mask(feat_t))
     g = torch.gather(g, 1, order[..., None].expand(-1, -1, g.shape[-1]))
-    d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]), mask=mask)[:, 0]
+    d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]), plan=plan)[:, 0]
     s = torch.rsqrt(torch.clamp_min(d, 1e-30))[:, None, :]  # [B, 1, N]
     w_conf = entropy_confidence(g)[:, None, :]
     diag = alpha * (d[:, None, :] + _DEGREE_EPS) * s * s + beta * w_conf + ridge
 
     def matvec(v):  # [B, K, N]
-        return diag * v - alpha * s * affinity_matvec_t(feat_t, s * v, mask=mask)
+        return diag * v - alpha * s * affinity_matvec_t(feat_t, s * v, plan=plan)
 
     rhs = w_conf * g.transpose(1, 2)
     y = beta * _cg(matvec, rhs.contiguous(), cg_iters, cg_tol,
