@@ -8,6 +8,7 @@ is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -15,6 +16,7 @@ import os
 import torch
 
 from weaksuppointcloudseg_tpu_torch import configs
+from weaksuppointcloudseg_tpu_torch.utils import profiling
 from weaksuppointcloudseg_tpu_torch.utils.tools import resolve_device
 
 
@@ -52,7 +54,11 @@ def base_parser(dataset: str = "ShapeNet", *,
                         "bf16 fused route). Test with the same flag the "
                         "model trained with")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="not supported by the port")
+                   help="write a torch.profiler Chrome trace (host, and the "
+                        "card where there is one) into DIR: the whole test "
+                        "run, or in training the epoch after the first "
+                        "trained one; it holds the port's spans "
+                        "(utils/profiling.py)")
     p.add_argument("--debug_nans", action="store_true",
                    help="not supported by the port")
     if train:
@@ -88,13 +94,30 @@ def base_parser(dataset: str = "ShapeNet", *,
 
 def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     """Exit with a usage error for a flag the port does not honour yet."""
-    for flag in ("profile", "debug_nans"):
-        if getattr(args, flag):
-            p.error(f"--{flag} traces JAX and is not supported by the port")
+    if args.debug_nans:
+        p.error("--debug_nans traces JAX and is not supported by the port")
     if getattr(args, "Resume", None):
         p.error("--Resume is not ported yet (ROADMAP)")
     if args.num_devices > 1:
         p.error("data parallelism is not ported yet (ROADMAP queue A)")
+
+
+def profile_context(args):
+    """Trace context for a whole test run (--profile DIR)."""
+    if not args.profile:
+        return contextlib.nullcontext()
+    return profiling.trace(args.profile)
+
+
+def profile_epoch_context(args, epoch: int, start_epoch: int, last_epoch: int):
+    """Trace context for one training epoch (--profile DIR): the epoch
+    after the first trained one, so first-call costs (kernel builds, the
+    allocator's growth) are left out, or the first if it is the only
+    one."""
+    target = start_epoch + 1 if start_epoch + 1 <= last_epoch else start_epoch
+    if not args.profile or epoch != target:
+        return contextlib.nullcontext()
+    return profiling.trace(args.profile)
 
 
 def device(args) -> torch.device:

@@ -75,8 +75,9 @@ def main(argv=None) -> dict:
     trainer.restore_checkpoint(ckpt)
 
     pred_dir = os.path.join(base, "Prediction") if base else None
-    res = trainer.test(rooms, use_label_prop=args.Style == "Full",
-                       pred_dir=pred_dir, room_lp=args.RoomLP)
+    with common.profile_context(args):
+        res = trainer.test(rooms, use_label_prop=args.Style == "Full",
+                           pred_dir=pred_dir, room_lp=args.RoomLP)
     print(f"Test Area {args.test_area}  mIoU {100 * res['miou']:.2f}%  "
           f"acc {100 * res['accuracy']:.2f}%")
     for name, iou in zip(S3DIS_CLASSES, res["per_class_iou"]):

@@ -60,8 +60,9 @@ def main(argv=None) -> dict:
                             "Checkpoint_epoch-best.npz")
     trainer.restore_checkpoint(ckpt)
 
-    res = trainer.test(testset, use_label_prop=args.Style == "Full",
-                       num_points=args.num_points)
+    with common.profile_context(args):
+        res = trainer.test(testset, use_label_prop=args.Style == "Full",
+                           num_points=args.num_points)
     print(
         f"Test perdata mIoU {100 * res['perdata_miou']:.2f}%  "
         f"pershape mIoU {100 * res['pershape_miou']:.2f}%  "

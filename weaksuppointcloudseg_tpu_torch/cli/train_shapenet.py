@@ -73,9 +73,12 @@ def main(argv=None) -> dict:
                     * num_points)
 
     best_miou, out = -1.0, {}
-    for epoch in range(trainer.epoch, args.Epoch):
+    start_epoch = trainer.epoch
+    for epoch in range(start_epoch, args.Epoch):
         timer.start()
-        m = trainer.train_epoch(epoch)  # ends in one device-to-host fetch
+        with common.profile_epoch_context(args, epoch, start_epoch,
+                                          args.Epoch - 1):
+            m = trainer.train_epoch(epoch)  # ends in one device-to-host fetch
         epoch_s = timer.stop()
         out["train"] = m
         summary.log(

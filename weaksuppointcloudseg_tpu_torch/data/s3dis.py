@@ -27,6 +27,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from weaksuppointcloudseg_tpu_torch.utils.profiling import span
+
 NUM_CLASSES = 13
 
 
@@ -244,15 +246,19 @@ class S3DISTestRooms:
 
         ``room_max`` is the room's xyz extent in metres, the scale of block
         channels 6:9: channels 6:9 times it are the points' room
-        coordinates, which room-level label propagation needs.
+        coordinates, which room-level label propagation needs. Spans
+        (utils/profiling.py::span): ``room.read`` (the file) and
+        ``room.sweep`` (:func:`room_to_blocks` and ``room_max``).
         """
         path = self.room_paths[i]
-        if path.endswith(".txt"):
-            data_label = np.loadtxt(path)
-        elif path.endswith(".npy"):
-            data_label = np.load(path)
-        else:
-            raise ValueError(f"unknown room file type: {path}")
-        blocks, labels = room_to_blocks(data_label, self.num_point, rng=rng)
-        room_max = data_label[:, 0:3].max(axis=0).astype(np.float32)
+        with span("room.read"):
+            if path.endswith(".txt"):
+                data_label = np.loadtxt(path)
+            elif path.endswith(".npy"):
+                data_label = np.load(path)
+            else:
+                raise ValueError(f"unknown room file type: {path}")
+        with span("room.sweep"):
+            blocks, labels = room_to_blocks(data_label, self.num_point, rng=rng)
+            room_max = data_label[:, 0:3].max(axis=0).astype(np.float32)
         return blocks, labels, path, room_max

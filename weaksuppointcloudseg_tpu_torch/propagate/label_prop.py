@@ -43,6 +43,7 @@ from weaksuppointcloudseg_tpu_torch.propagate.laplacian import (
     laplacian_xyz_rgb,
     product_kernel_weights,
 )
+from weaksuppointcloudseg_tpu_torch.utils.profiling import span
 
 _DEGREE_EPS = 1e-8  # LabelPropConfig.degree_eps; no caller changes it
 _NOT_PORTED = {
@@ -71,26 +72,34 @@ def _cg(matvec, rhs: torch.Tensor, maxiter: int, tol: float,
     """Conjugate gradient with x0 = 0, one vector over the whole array,
     optionally preconditioned by ``M`` (a function v -> M v). As
     ``jax.scipy.sparse.linalg.cg``: gamma = r.M(r), and the stop test reads
-    r.r when M is given (gamma without it)."""
-    precond = (lambda v: v) if M is None else M
-    x = torch.zeros_like(rhs)
-    r = rhs.clone()  # b - A(0)
-    p = precond(r)
-    gamma = torch.sum(r * p)
-    atol2 = tol * tol * torch.sum(rhs * rhs)
-    for _ in range(maxiter):
-        rs = gamma if M is None else torch.sum(r * r)
-        if not bool(rs > atol2):  # the reference's while-loop condition
-            break
-        ap = matvec(p)
-        alpha = gamma / torch.sum(p * ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        gamma_new = torch.sum(r * z)
-        p = z + (gamma_new / gamma) * p
-        gamma = gamma_new
-    return x
+    r.r when M is given (gamma without it).
+
+    Spans (utils/profiling.py::span): ``lp.cg`` around the solve and an
+    ``lp.cg_step`` per step that runs a matvec, from the matvec through
+    the updates; the stop test that admits the step (a synchronise) runs
+    just before its span, since only its answer says whether a step
+    follows."""
+    with span("lp.cg"):
+        precond = (lambda v: v) if M is None else M
+        x = torch.zeros_like(rhs)
+        r = rhs.clone()  # b - A(0)
+        p = precond(r)
+        gamma = torch.sum(r * p)
+        atol2 = tol * tol * torch.sum(rhs * rhs)
+        for _ in range(maxiter):
+            rs = gamma if M is None else torch.sum(r * r)
+            if not bool(rs > atol2):  # the reference's while-loop condition
+                break
+            with span("lp.cg_step"):
+                ap = matvec(p)
+                alpha = gamma / torch.sum(p * ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                z = precond(r)
+                gamma_new = torch.sum(r * z)
+                p = z + (gamma_new / gamma) * p
+                gamma = gamma_new
+        return x
 
 
 def _normalize(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -205,11 +214,15 @@ def label_propagation_matfree(
     work plan are built once for them and passed to every launch. The CG
     runs in the Morton order in the [B, K, N] layout, Jacobi-preconditioned
     (M = v / diag), and the result is unsorted at the end. Padding the CG to tiles, as the reference's kernel needs, is not
-    needed here.
+    needed here. Spans (utils/profiling.py::span): ``lp.features`` (its
+    Gram check synchronises), ``lp.plan`` (the mask and the plan, one
+    synchronise) and :func:`_cg`'s.
     """
-    feat_t, order = matfree_features(xyz, rgb, xyz_bandwidth=xyz_bandwidth,
-                                     rgb_bandwidth=rgb_bandwidth)
-    plan = tile_plan(tile_mask(feat_t))
+    with span("lp.features"):
+        feat_t, order = matfree_features(xyz, rgb, xyz_bandwidth=xyz_bandwidth,
+                                         rgb_bandwidth=rgb_bandwidth)
+    with span("lp.plan"):
+        plan = tile_plan(tile_mask(feat_t))
     g = torch.gather(g, 1, order[..., None].expand(-1, -1, g.shape[-1]))
     d = affinity_matvec_t(feat_t, torch.ones_like(feat_t[:, :1]), plan=plan)[:, 0]
     s = torch.rsqrt(torch.clamp_min(d, 1e-30))[:, None, :]  # [B, 1, N]

@@ -40,6 +40,7 @@ from weaksuppointcloudseg_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     load_jax_checkpoint,
 )
+from weaksuppointcloudseg_tpu_torch.utils.profiling import span
 from weaksuppointcloudseg_tpu_torch.utils.tools import onehot_encode, resolve_device
 
 
@@ -97,31 +98,43 @@ class _TrainerBase:
         """The steps of one epoch over ``batches`` (the gate and the pair
         augmentation on from the rampup epoch); returns the metrics averaged
         over steps, weighted by real samples. The per-step metrics stay on
-        the device until the epoch ends and are fetched in one transfer."""
-        siamese = self.style == "Full"
-        gate = 1.0 if epoch >= self.rampup else 0.0
-        augment_pairs = siamese and epoch >= self.rampup
-        steps, counts = [], []
-        for b in batches:
-            batch = self._assemble(b, siamese=siamese,
-                                   augment_pairs=augment_pairs, full_mask=False)
-            steps.append(self.train_step(self._to_device(batch), gate,
-                                         self.generator))
-            counts.append(b.valid)
-        self.epoch = epoch + 1
-        if not steps:
-            return {}
-        dev_keys = [k for k, v in steps[0].items() if torch.is_tensor(v)]
-        stacked = torch.stack([torch.stack([m[k] for k in dev_keys])
-                               for m in steps]).cpu().numpy()  # one sync
-        w = np.asarray(counts, np.float64)
-        out = {k: float(np.sum(stacked[:, i] * w) / w.sum())
-               for i, k in enumerate(dev_keys)}
-        for k in steps[0]:
-            if k not in out:
-                out[k] = float(np.sum(np.asarray([m[k] for m in steps]) * w)
-                               / w.sum())
-        return out
+        the device until the epoch ends and are fetched in one transfer.
+
+        Spans (utils/profiling.py::span): ``train.epoch`` around it all; per
+        step ``train.assemble`` (``_assemble``), ``train.upload``
+        (``_to_device``: pageable copies, so the host waits there for the
+        stream) and ``train.step`` (forward, backward and Adam enqueued);
+        ``train.fetch``, the one fetch of the metrics."""
+        with span("train.epoch"):
+            siamese = self.style == "Full"
+            gate = 1.0 if epoch >= self.rampup else 0.0
+            augment_pairs = siamese and epoch >= self.rampup
+            steps, counts = [], []
+            for b in batches:
+                with span("train.assemble"):
+                    batch = self._assemble(b, siamese=siamese,
+                                           augment_pairs=augment_pairs,
+                                           full_mask=False)
+                with span("train.upload"):
+                    batch = self._to_device(batch)
+                with span("train.step"):
+                    steps.append(self.train_step(batch, gate, self.generator))
+                counts.append(b.valid)
+            self.epoch = epoch + 1
+            if not steps:
+                return {}
+            dev_keys = [k for k, v in steps[0].items() if torch.is_tensor(v)]
+            with span("train.fetch"):
+                stacked = torch.stack([torch.stack([m[k] for k in dev_keys])
+                                       for m in steps]).cpu().numpy()  # one sync
+            w = np.asarray(counts, np.float64)
+            out = {k: float(np.sum(stacked[:, i] * w) / w.sum())
+                   for i, k in enumerate(dev_keys)}
+            for k in steps[0]:
+                if k not in out:
+                    out[k] = float(np.sum(np.asarray([m[k] for m in steps]) * w)
+                                   / w.sum())
+            return out
 
     # -- checkpoints --------------------------------------------------------
 
@@ -427,6 +440,11 @@ class S3DISTrainer(_TrainerBase):
         norms span the chunk, so the chunking is part of the result. With
         ``room_lp``, one matrix-free LP over every block point of the room
         in room coordinates (:meth:`room_label_prop`) replaces it.
+
+        Spans (utils/profiling.py::span): ``test.room`` per room, holding
+        ``room.read`` and ``room.sweep`` (:meth:`S3DISTestRooms.load_room`),
+        a ``room.forward`` per chunk (upload, eval forward, softmax, the
+        per-block LP where on, the fetch to the host) and ``lp.room``.
         """
         if use_label_prop is None:
             use_label_prop = self.style == "Full"
@@ -440,33 +458,37 @@ class S3DISTrainer(_TrainerBase):
         bs = max(self.cfg.train.batch_size, 1)
         logits_fn = make_eval_logits_fn(self.model)
         for r in range(len(rooms)):
-            blocks, labels, path, room_max = rooms.load_room(r, rng=self.np_rng)
-            room_prob = []
-            for start in range(0, len(blocks), bs):
-                # the eval forward is per block: the reference pads the last
-                # chunk to its compiled shape, which changes no real block
-                chunk = torch.from_numpy(blocks[start:start + bs]).to(self.device)
-                with torch.inference_mode():
-                    prob = torch.softmax(logits_fn(chunk), dim=-1)
-                    if use_label_prop and not room_lp:
-                        prob = propagate_batch(
-                            chunk[..., 0:3], prob, chunk[..., 3:6],
-                            alpha=lp.alpha, beta=lp.beta,
-                            xyz_bandwidth=lp.xyz_bandwidth,
-                            rgb_bandwidth=lp.rgb_bandwidth, ridge=lp.ridge,
-                            solver=lp.solver, cg_iters=lp.cg_iters,
-                            cg_tol=lp.cg_tol)
-                room_prob.append(prob.cpu().numpy())
-            if not room_prob:
-                continue
-            prob = np.concatenate(room_prob)
-            if room_lp and use_label_prop:
-                pred = self.room_label_prop(blocks, prob, room_max)
-            else:
-                pred = prob.argmax(-1)
-            conf.update(pred, labels)
-            if pred_dir is not None:
-                self._dump_room(pred_dir, path, blocks, pred, labels)
+            with span("test.room"):
+                blocks, labels, path, room_max = rooms.load_room(r, rng=self.np_rng)
+                room_prob = []
+                for start in range(0, len(blocks), bs):
+                    with span("room.forward"):
+                        # the eval forward is per block: the reference pads
+                        # the last chunk to its compiled shape, which
+                        # changes no real block
+                        chunk = torch.from_numpy(
+                            blocks[start:start + bs]).to(self.device)
+                        with torch.inference_mode():
+                            prob = torch.softmax(logits_fn(chunk), dim=-1)
+                            if use_label_prop and not room_lp:
+                                prob = propagate_batch(
+                                    chunk[..., 0:3], prob, chunk[..., 3:6],
+                                    alpha=lp.alpha, beta=lp.beta,
+                                    xyz_bandwidth=lp.xyz_bandwidth,
+                                    rgb_bandwidth=lp.rgb_bandwidth,
+                                    ridge=lp.ridge, solver=lp.solver,
+                                    cg_iters=lp.cg_iters, cg_tol=lp.cg_tol)
+                        room_prob.append(prob.cpu().numpy())
+                if not room_prob:
+                    continue
+                prob = np.concatenate(room_prob)
+                if room_lp and use_label_prop:
+                    pred = self.room_label_prop(blocks, prob, room_max)
+                else:
+                    pred = prob.argmax(-1)
+                conf.update(pred, labels)
+                if pred_dir is not None:
+                    self._dump_room(pred_dir, path, blocks, pred, labels)
         return {"miou": conf.miou, "accuracy": conf.accuracy,
                 "per_class_iou": conf.iou}
 
@@ -492,33 +514,34 @@ class S3DISTrainer(_TrainerBase):
         Returns:
           [K, N] predictions.
         """
-        lp = self.cfg.labelprop
-        k_blocks, n, c = prob.shape
-        k_pad = -(-k_blocks // 8) * 8
-        xyz = (blocks[:, :, 6:9] * room_max).astype(np.float32)
-        rgb = blocks[:, :, 3:6].astype(np.float32)
-        prob = prob.astype(np.float32)
-        if k_pad > k_blocks:
-            extra = k_pad - k_blocks
-            pad_xyz = (np.asarray(room_max, np.float32) + 2.0).reshape(1, 1, 3)
-            xyz = np.concatenate(
-                [xyz, np.broadcast_to(pad_xyz, (extra, n, 3))])
-            rgb = np.concatenate([rgb, np.zeros((extra, n, 3), np.float32)])
-            prob = np.concatenate(
-                [prob, np.full((extra, n, c), 1.0 / c, np.float32)])
-        put = lambda a: torch.from_numpy(
-            np.ascontiguousarray(a).reshape(1, -1, a.shape[-1])).to(self.device)
-        # the dense [N_room, N_room] affinity would not fit: only the
-        # matrix-free and point-sharded solvers reach room scale
-        solver = "sharded" if lp.solver == "sharded" else "cg_matfree"
-        with torch.inference_mode():
-            y = propagate_batch(
-                put(xyz), put(prob), put(rgb), alpha=lp.alpha, beta=lp.beta,
-                xyz_bandwidth=lp.xyz_bandwidth, rgb_bandwidth=lp.rgb_bandwidth,
-                ridge=lp.ridge, solver=solver, cg_iters=lp.cg_iters,
-                cg_tol=lp.cg_tol)
-        pred = y[0].cpu().numpy().argmax(-1).reshape(k_pad, n)
-        return pred[:k_blocks]
+        with span("lp.room"):
+            lp = self.cfg.labelprop
+            k_blocks, n, c = prob.shape
+            k_pad = -(-k_blocks // 8) * 8
+            xyz = (blocks[:, :, 6:9] * room_max).astype(np.float32)
+            rgb = blocks[:, :, 3:6].astype(np.float32)
+            prob = prob.astype(np.float32)
+            if k_pad > k_blocks:
+                extra = k_pad - k_blocks
+                pad_xyz = (np.asarray(room_max, np.float32) + 2.0).reshape(1, 1, 3)
+                xyz = np.concatenate(
+                    [xyz, np.broadcast_to(pad_xyz, (extra, n, 3))])
+                rgb = np.concatenate([rgb, np.zeros((extra, n, 3), np.float32)])
+                prob = np.concatenate(
+                    [prob, np.full((extra, n, c), 1.0 / c, np.float32)])
+            put = lambda a: torch.from_numpy(
+                np.ascontiguousarray(a).reshape(1, -1, a.shape[-1])).to(self.device)
+            # the dense [N_room, N_room] affinity would not fit: only the
+            # matrix-free and point-sharded solvers reach room scale
+            solver = "sharded" if lp.solver == "sharded" else "cg_matfree"
+            with torch.inference_mode():
+                y = propagate_batch(
+                    put(xyz), put(prob), put(rgb), alpha=lp.alpha, beta=lp.beta,
+                    xyz_bandwidth=lp.xyz_bandwidth, rgb_bandwidth=lp.rgb_bandwidth,
+                    ridge=lp.ridge, solver=solver, cg_iters=lp.cg_iters,
+                    cg_tol=lp.cg_tol)
+            pred = y[0].cpu().numpy().argmax(-1).reshape(k_pad, n)
+            return pred[:k_blocks]
 
     @staticmethod
     def _dump_room(pred_dir: str, room_path: str, data, pred, gt) -> None:
