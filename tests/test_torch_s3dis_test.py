@@ -75,6 +75,91 @@ def test_room_to_blocks_matches_reference(num_point):
     assert empty[0].shape == (0, num_point, 9) and empty[1].shape == (0, num_point)
 
 
+def as_room(xyz, rng):
+    rgb = rng.uniform(0, 255, (len(xyz), 3))
+    lab = rng.integers(0, 13, len(xyz))
+    return np.concatenate([xyz, rgb, lab[:, None]], 1)
+
+
+def counted_room(rng, counts):
+    """A room whose block (i, j) holds counts[i][j] points, all strictly
+    inside it (no point on an edge), in shuffled order."""
+    xyz = [rng.uniform([i + 0.01, j + 0.01, 0], [i + 0.99, j + 0.99, 3], (n, 3))
+           for i, row in enumerate(counts) for j, n in enumerate(row)]
+    xyz = np.concatenate(xyz)
+    return as_room(xyz[rng.permutation(len(xyz))], rng)
+
+
+def sweep_room(case, rng):
+    """(room, num_point, min_points) of one edge-rule case of the sweep."""
+    if case == "interior_edges":  # points on x = 1, 2 and y = 1, 2, corners
+        xyz = rng.uniform([0, 0, 0], [3.5, 2.5, 3], (3000, 3))
+        xyz[:300, 0] = rng.choice([1.0, 2.0], 300)  # in 2 blocks (4 on y = 1, 2)
+        xyz[300:600, 1] = rng.choice([1.0, 2.0], 300)
+        xyz[600:700, 0:2] = rng.choice([1.0, 2.0], (100, 2))  # in 4 blocks
+        return as_room(xyz[rng.permutation(len(xyz))], rng), 64, 20
+    if case == "integer_wall":  # x == limit == 5.0: only in the block below
+        xyz = rng.uniform([0, 0, 0], [5, 3, 3], (4000, 3))
+        xyz[:500, 0] = 5.0
+        xyz[500:900, 1] = 3.0
+        xyz[900:950, 0:2] = [5.0, 3.0]
+        xyz[950:1100, 0:2] = [0.0, 0.0]  # the origin: no block below it
+        return as_room(xyz, rng), 64, 20
+    if case == "fractional_wall":  # x == limit == 4.6, and x < 0
+        xyz = rng.uniform([0, 0, 0], [4.6, 2.3, 3], (4000, 3))
+        xyz[:500, 0] = 4.6
+        xyz[500:900, 1] = 2.3
+        xyz[900:1000, 0] = 4.0
+        xyz[1000:1050, 0] = rng.choice([-1.0, -0.5, -1e-9], 50)  # in no block
+        return as_room(xyz, rng), 64, 20
+    if case == "counts":  # exactly num_point; min_points - 1, at, above
+        return counted_room(rng, [[128, 99, 100], [101, 400, 30]]), 128, 100
+    if case == "none_kept":
+        return counted_room(rng, [[99, 20], [0, 99]]), 128, 100
+    raise ValueError(case)
+
+
+SWEEP_CASES = ["interior_edges", "integer_wall", "fractional_wall", "counts",
+               "none_kept"]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_one_pass_sweep_matches_reference(case, dtype):
+    """Bitwise against the reference's mask per block: blocks, labels and
+    the caller's generator after the sweep, on rooms that stress the
+    inclusive bounds (a point on an edge in 2 blocks, on a corner in 4, a
+    wall at an integer and a fractional far extent) and the block counts
+    (exactly num_point, min_points - 1 and min_points, no block kept)."""
+    room, num_point, min_points = sweep_room(case, np.random.default_rng(5))
+    room = room.astype(dtype)
+    rg, rw = np.random.default_rng(9), np.random.default_rng(9)
+    got = s3dis.room_to_blocks(room, num_point, min_points=min_points, rng=rg)
+    want = js3dis.room_to_blocks(room, num_point, min_points=min_points, rng=rw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert rg.random() == rw.random()
+    kept = {"interior_edges": 12, "integer_wall": 15, "fractional_wall": 15,
+            "counts": 4, "none_kept": 0}[case]
+    assert len(got[0]) == kept
+
+
+def test_one_pass_sweep_rooms_in_turn():
+    """Every case swept in turn on one generator (as S3DISTrainer.test
+    draws across rooms) ends where the reference's does, twice over."""
+    rooms = [sweep_room(c, np.random.default_rng(i))
+             for i, c in enumerate(SWEEP_CASES * 2)]
+    rg, rw = np.random.default_rng(11), np.random.default_rng(11)
+    for room, num_point, min_points in rooms:
+        got = s3dis.room_to_blocks(room, num_point, min_points=min_points, rng=rg)
+        want = js3dis.room_to_blocks(room, num_point, min_points=min_points,
+                                     rng=rw)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert rg.random() == rw.random()
+
+
 def test_load_room_matches_reference(dataset):
     got = s3dis.S3DISTestRooms(dataset, "area5", num_point=N)
     want = js3dis.S3DISTestRooms(dataset, "area5", num_point=N)
@@ -90,6 +175,21 @@ def test_load_room_matches_reference(dataset):
     got.room_paths = want.room_paths = [txt]
     for x, y in zip(got.load_room(0), want.load_room(0)):
         np.testing.assert_array_equal(x, y)
+
+
+def test_load_room_extent_from_the_sweep(dataset):
+    """room_max, taken from the sweep's pass, is the room's xyz max as
+    float32, for a .npy room and a .txt room."""
+    rooms = s3dis.S3DISTestRooms(dataset, "area5", num_point=N)
+    npy = rooms.room_paths[0]
+    txt = os.path.join(os.path.dirname(npy), "extent.txt")
+    np.savetxt(txt, np.load(npy)[:700])
+    rooms.room_paths = [npy, txt]
+    for i, raw in enumerate([np.load(npy), np.loadtxt(txt)]):
+        room_max = rooms.load_room(i)[3]
+        assert room_max.dtype == np.float32
+        np.testing.assert_array_equal(
+            room_max, raw[:, 0:3].max(axis=0).astype(np.float32))
 
 
 # --------------------------------------------------------- the test path

@@ -148,11 +148,103 @@ BLOCK_SIZE = 1.0  # metres, the sweep's block edge and stride
 MIN_POINTS = 100  # blocks with fewer points are dropped
 
 
+def _block_members(x: np.ndarray, y: np.ndarray, num_x: int, num_y: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Every point's blocks on the grid, bucketed: (the point indices of
+    block 0, block 1, ... in turn, each block's in ascending index; where
+    each block starts among them; each block's count), blocks numbered
+    i * num_y + j.
+
+    Block (i, j) holds i <= x <= i + 1 and j <= y <= j + 1 (bounds
+    inclusive, as the reference's mask): a point's own block is (floor(x),
+    floor(y)), and a point on an interior edge (x == floor(x) >= 1, or y)
+    also belongs to the block below it on that axis, and on a corner to
+    the diagonal one too. Blocks off the grid are dropped, such as the own
+    block of a point at an integer far extent (x == limit == 5.0). Block
+    edges are whole metres (BLOCK_SIZE is 1), so these tests are exact."""
+    n, nblocks = len(x), num_x * num_y
+    fx, fy = np.floor(x), np.floor(y)
+    on_x, on_y = np.flatnonzero(x == fx), np.flatnonzero(y == fy)
+    # each point's own block; a point off the grid goes to one more
+    # bucket, nblocks, which sorts last and is never read
+    key = fx * num_y
+    key += fy
+    key[(fx < 0) | (fx >= num_x) | (fy < 0) | (fy >= num_y)] = nblocks
+    # the edge points' copies: into the block below in x, below in y, and
+    # for a corner the diagonal one
+    on_x = on_x[(fx[on_x] >= 1) & (fx[on_x] <= num_x)]
+    on_y = on_y[(fy[on_y] >= 1) & (fy[on_y] <= num_y)]
+    diag = np.intersect1d(on_x, on_y, assume_unique=True)
+    on_x = on_x[(fy[on_x] >= 0) & (fy[on_x] < num_y)]
+    on_y = on_y[(fx[on_y] >= 0) & (fx[on_y] < num_x)]
+    copies = np.concatenate([on_x, on_y, diag])
+    kdt = np.int16 if nblocks <= np.iinfo(np.int16).max else np.int64
+    keys = np.empty(n + len(copies), kdt)
+    keys[:n] = key
+    keys[n:] = np.concatenate([(fx[on_x] - 1) * num_y + fy[on_x],
+                               fx[on_y] * num_y + fy[on_y] - 1,
+                               (fx[diag] - 1) * num_y + fy[diag] - 1])
+    # a stable sort keeps each block's own points in index order (numpy
+    # sorts 16-bit keys by radix); copies follow them (positions n on), so
+    # they are mapped to their points and their blocks put back in order
+    members = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=nblocks + 1)[:nblocks]
+    members = members[:counts.sum()]
+    moved = members >= n
+    members[moved] = copies[members[moved] - n]
+    starts = np.cumsum(counts) - counts
+    for b in np.unique(keys[n:]):
+        members[starts[b]:starts[b] + counts[b]].sort()
+    return members, starts, counts
+
+
+def _sweep(data_label: np.ndarray, num_point: int, min_points: int,
+           rng: Optional[np.random.Generator]
+           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`room_to_blocks` and the room's extent ``limit`` [3] f64."""
+    rng = rng or np.random.default_rng(0)
+    x = data_label[:, 0].astype(np.float64)
+    y = data_label[:, 1].astype(np.float64)
+    limit = np.array([x.max(), y.max(), data_label[:, 2].max()], np.float64)
+    num_x = int(np.ceil((limit[0] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+    num_y = int(np.ceil((limit[1] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+    empty = (np.zeros((0, num_point, 9), np.float32),
+             np.zeros((0, num_point), np.int32), limit)
+    if num_x <= 0 or num_y <= 0:
+        return empty
+    members, starts, counts = _block_members(x, y, num_x, num_y)
+    # the draws in the reference's order (i outer, j inner), one call per
+    # kept block, so the caller's generator ends where the reference's does
+    picks = [starts[b] + sample_to_num_points(int(counts[b]), num_point, rng)
+             for b in np.flatnonzero(counts >= min_points)]
+    if not picks:
+        return empty
+    rows = members[np.concatenate(picks)]
+    picked = data_label[rows]
+    pts = picked[:, 0:6].astype(np.float64).reshape(len(picks), num_point, 6)
+    pts[..., 3:6] /= 255.0
+    out = np.empty((len(picks), num_point, 9), np.float32)
+    out[..., 6:9] = pts[..., 0:3] / limit
+    pts[..., 0:2] -= pts[..., 0:2].min(axis=1, keepdims=True) + BLOCK_SIZE / 2
+    out[..., 0:6] = pts
+    labels = picked[:, -1].astype(np.int32).reshape(len(picks), num_point)
+    return out, labels, limit
+
+
 def room_to_blocks(data_label: np.ndarray, num_point: int, *,
                    min_points: int = MIN_POINTS,
                    rng: Optional[np.random.Generator] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Room -> fixed-size 9-channel blocks (DataIO_S3DIS.py:301-414).
+
+    One pass over the room: each point's 1 m block on the grid is computed
+    once, the points are bucketed by block with one stable sort, blocks of
+    fewer than ``min_points`` are dropped, and every kept block's
+    resampled rows are gathered at once. A point on a block edge belongs
+    to both blocks, and on a corner to all four (inclusive bounds, as the
+    reference's mask per block); each block's points are in room order.
+    The result is bitwise the reference's sweep, the generator's draws
+    included.
 
     Args:
       data_label: [N, 7] (xyz in metres from the room's min corner, rgb
@@ -161,40 +253,10 @@ def room_to_blocks(data_label: np.ndarray, num_point: int, *,
       rng: the resampling draws, in block order (default: seed 0).
 
     Returns:
-      (blocks [K, num_point, 9] f32, labels [K, num_point] i32). A point on
-      a block edge belongs to both blocks (inclusive bounds, as the
-      reference).
+      (blocks [K, num_point, 9] f32, labels [K, num_point] i32).
     """
-    rng = rng or np.random.default_rng(0)
-    data = np.array(data_label[:, 0:6], np.float64)
-    data[:, 3:6] /= 255.0
-    label = data_label[:, -1].astype(np.int32)
-    limit = data[:, 0:3].max(axis=0)
-    num_x = int(np.ceil((limit[0] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
-    num_y = int(np.ceil((limit[1] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
-
-    blocks, labels = [], []
-    for i in range(num_x):
-        for j in range(num_y):
-            xbeg, ybeg = i * BLOCK_SIZE, j * BLOCK_SIZE
-            cond = ((data[:, 0] >= xbeg) & (data[:, 0] <= xbeg + BLOCK_SIZE)
-                    & (data[:, 1] >= ybeg) & (data[:, 1] <= ybeg + BLOCK_SIZE))
-            n_in = int(cond.sum())
-            if n_in < min_points:
-                continue
-            sel = sample_to_num_points(n_in, num_point, rng)
-            block, blab = data[cond][sel], label[cond][sel]
-            out = np.zeros((num_point, 9), np.float32)
-            out[:, 6:9] = block[:, 0:3] / limit
-            block[:, 0] -= block[:, 0].min() + BLOCK_SIZE / 2
-            block[:, 1] -= block[:, 1].min() + BLOCK_SIZE / 2
-            out[:, 0:6] = block
-            blocks.append(out)
-            labels.append(blab)
-    if not blocks:
-        return (np.zeros((0, num_point, 9), np.float32),
-                np.zeros((0, num_point), np.int32))
-    return np.stack(blocks), np.stack(labels)
+    blocks, labels, _ = _sweep(data_label, num_point, min_points, rng)
+    return blocks, labels
 
 
 def synthetic_blocks(*, num_rooms_per_area: int = 2,
@@ -246,9 +308,10 @@ class S3DISTestRooms:
 
         ``room_max`` is the room's xyz extent in metres, the scale of block
         channels 6:9: channels 6:9 times it are the points' room
-        coordinates, which room-level label propagation needs. Spans
+        coordinates, which room-level label propagation needs; the sweep
+        computes it in its one pass over the room. Spans
         (utils/profiling.py::span): ``room.read`` (the file) and
-        ``room.sweep`` (:func:`room_to_blocks` and ``room_max``).
+        ``room.sweep`` (the sweep, the extent included).
         """
         path = self.room_paths[i]
         with span("room.read"):
@@ -259,6 +322,7 @@ class S3DISTestRooms:
             else:
                 raise ValueError(f"unknown room file type: {path}")
         with span("room.sweep"):
-            blocks, labels = room_to_blocks(data_label, self.num_point, rng=rng)
-            room_max = data_label[:, 0:3].max(axis=0).astype(np.float32)
+            blocks, labels, limit = _sweep(data_label, self.num_point,
+                                           MIN_POINTS, rng)
+            room_max = limit.astype(np.float32)
         return blocks, labels, path, room_max
