@@ -42,9 +42,10 @@ Phases:
   8. the S3DIS test path through ``cli.test_s3dis`` at full width (bf16,
      ``knn_fast``, -bs 14) on a raw test area the script writes (two
      surface-sampled rooms: 8 x 4 x 3 m, 32 blocks = 131,072 room-LP
-     points, and 5 x 5 x 3 m, 25 blocks padded to 32), per-block LP (B1,
-     B7, B8 launch; B10 must not) and ``--RoomLP`` (B10 launches once for
-     the degrees and once per CG iteration, per room): finite mIoU, the
+     points, and 5 x 5 x 3 m, 25 blocks padded to 32), swept on the card
+     (RS1 and RS2 launch once a room), per-block LP (B1, B7, B8 launch;
+     B10 must not) and ``--RoomLP`` (B10 launches once for the degrees and
+     once per CG iteration, per room): finite mIoU, the
      .mat files; then bench.py's ``s3dis_eval_forward_throughput``,
      ``s3dis_test_e2e_throughput`` (14 x 4096 points) and
      ``s3dis_room_lp_131072`` with its CG iterations, peak memory, device
@@ -107,8 +108,11 @@ B14 (the bf16 row gather) to its plain version
 bitwise at C=64, 3 and 9, and B10 and B17 (the Gaussian-affinity matvec) to their
 plain versions at that room LP's shape, with the share of tile pairs
 skipped and the work plan, and B10 on that room with room_label_prop's pad
-blocks, and B11 (the first conv on a given graph) to B1's output at
-B1's own graph and to its plain version at the static stages' shapes.
+blocks, B11 (the first conv on a given graph) to B1's output at
+B1's own graph and to its plain version at the static stages' shapes,
+and the room sweep's RS1 (the bucketing) and RS2 (the gather and
+normalisation) to their plain versions bitwise at the room benchmark's
+largest room (1,536,576 float64 rows, 8 x 6 blocks, 48 x 4096 picks).
 Phases 4, 6, 7, 9 (static ShapeNet) and 12 (bf16 fused classifier) repeat
 one training step from the same state and require the same bits in every
 loss, gradient, BN statistic and weight (ROADMAP C16), with a diagnostic
@@ -1609,6 +1613,79 @@ def check_affinity(gen, report):
     torch.cuda.empty_cache()
 
 
+# the room benchmark's largest room: its conference room as its generator
+# (benchmark/harness/traffic.py::surface_room, a copy of surface_room below)
+# builds it, 1,536,576 float64 rows on an 8 x 6 grid of 1 m blocks
+SWEEP_ROOM, SWEEP_PER_M2, SWEEP_POINTS = (8.0, 6.0, 3.0), 10600, 4096
+
+
+def check_room_sweep(report):
+    """RS1 (the bucketing: count, rows, starts, scatter) and RS2 (the
+    gather and normalisation) against their plain versions, bitwise, on
+    the same card tensors at the room benchmark's largest room: RS1's
+    members and counts, then RS2's blocks and labels from the draws that
+    data/s3dis.py's sweep makes (4096 of each of its 48 blocks). The bound
+    is bytes read and written once: x and y of every row and the members
+    for RS1; the picked rows, their picks and members, the blocks and the
+    labels for RS2."""
+    import torch
+
+    from weaksuppointcloudseg_tpu_torch.data import s3dis
+    from weaksuppointcloudseg_tpu_torch.ops import room_sweep
+
+    room = surface_room(np.random.default_rng(0), SWEEP_ROOM, SWEEP_PER_M2)
+    raw = torch.from_numpy(room).cuda()
+    limit = room[:, 0:3].max(0)
+    num_x, num_y = s3dis._grid(limit)
+    members, counts = room_sweep.block_members(raw, num_x, num_y)
+    want_m, want_c = room_sweep.block_members_ref(raw, num_x, num_y)
+    m = len(want_m)
+    require(torch.equal(counts, want_c) and torch.equal(members[:m], want_m),
+            f"block_members (RS1) {len(room)} rows, {num_x} x {num_y} blocks: "
+            f"not bitwise its plain version")
+    picks = s3dis._draws(counts.cpu().numpy(), SWEEP_POINTS, s3dis.MIN_POINTS,
+                         np.random.default_rng(1),
+                         lambda shape: np.empty(shape, np.int32))
+    picks = torch.from_numpy(picks).cuda()
+    members = members[:m]
+    blocks, labels = room_sweep.gather_blocks(raw, members, picks, limit)
+    want_b, want_l = room_sweep.gather_blocks_ref(raw, members, picks, limit)
+    require(same_bits(blocks, want_b) and torch.equal(labels, want_l),
+            f"gather_blocks (RS2) {tuple(picks.shape)} picks: not bitwise its "
+            f"plain version")
+    del want_m, want_c, want_b, want_l
+    n, c = raw.shape
+    k = picks.shape[0]
+    rows = {
+        "block_members (RS1)": (
+            lambda: room_sweep.block_members(raw, num_x, num_y),
+            lambda: room_sweep.block_members_ref(raw, num_x, num_y),
+            16 * n + 4 * m, ("count_kernel", "rows_kernel", "starts_kernel",
+                             "scatter_kernel")),
+        "gather_blocks (RS2)": (
+            lambda: room_sweep.gather_blocks(raw, members, picks, limit),
+            lambda: room_sweep.gather_blocks_ref(raw, members, picks, limit),
+            k * SWEEP_POINTS * (8 * c + 4 + 4 + 9 * 4 + 4), ("gather_kernel",)),
+    }
+    for name, (fn, ref, io, parts) in rows.items():
+        ms = timed_ms(fn)
+        plain_ms = timed_ms(ref, reps=3, warmup=1)
+        split = kernel_device_ms(fn, parts)
+        bnd = bound(0.0, "f32", io)
+        print(f"  {name} {n} f64 rows, {num_x} x {num_y} blocks, {m} members, "
+              f"{k} x {SWEEP_POINTS} picks: bitwise equal; kernel {ms:.4f} ms "
+              f"between events (on the device: "
+              + ", ".join(f"{p} {t:.4f}" for p, t in zip(parts, split))
+              + f"), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+              f"{io / 1e6:.1f} MB), {100 * bnd[0] / ms:.1f}% of bound")
+        report.append(kernel_row(
+            name, "weaksuppointcloudseg_tpu_torch/ops/csrc/room_sweep.cu",
+            "none (the JAX package sweeps a room with numpy on the host)", 0.0,
+            ms, plain_ms, bnd))
+    del raw, members, picks, blocks, labels
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(report):
     import torch
 
@@ -1633,6 +1710,7 @@ def phase_kernels(report):
     check_knn_wgather(gen, report)
     torch.cuda.empty_cache()
     check_affinity(gen, report)
+    check_room_sweep(report)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2592,7 +2670,12 @@ def phase_s3dis_test(report) -> None:
 
     import torch
 
-    from weaksuppointcloudseg_tpu_torch.ops import affinity, conv_kmax, edgeconv
+    from weaksuppointcloudseg_tpu_torch.ops import (
+        affinity,
+        conv_kmax,
+        edgeconv,
+        room_sweep,
+    )
     from weaksuppointcloudseg_tpu_torch.propagate import label_prop
     from weaksuppointcloudseg_tpu_torch.train.steps import make_eval_logits_fn
     from weaksuppointcloudseg_tpu_torch.utils.checkpoint import save_checkpoint
@@ -2602,7 +2685,9 @@ def phase_s3dis_test(report) -> None:
     kernels = {"knn_edge (B1)": edgeconv.knn_edge,
                "conv_zmax (B7)": conv_kmax.conv_zmax,
                "conv_znmax (B8)": conv_kmax.conv_znmax,
-               "affinity_matvec_t (B10)": affinity.affinity_matvec_t}
+               "affinity_matvec_t (B10)": affinity.affinity_matvec_t,
+               "block_members (RS1)": room_sweep.block_members,
+               "gather_blocks (RS2)": room_sweep.gather_blocks}
     _, model = full_width_model(seed=2, preset="s3dis_config")
     with tempfile.TemporaryDirectory() as tmp:
         data_path = f"{tmp}/indoor3d_sem_seg_hdf5_data"
@@ -2629,9 +2714,12 @@ def phase_s3dis_test(report) -> None:
             f"B10 launched {b10} times for CGs of {matvecs} matvecs")
     require(all(n > 0 for n in launches.values()),
             f"a kernel did not launch on the --RoomLP path: {launches}")
+    require(launches["block_members (RS1)"] == launches["gather_blocks (RS2)"]
+            == len(TEST_ROOMS), f"the room sweep's kernels: {launches}")
     for row in report:
-        if row["name"] == "affinity_matvec_t (B10)":
-            row["launches"] = b10
+        if row["name"] in ("affinity_matvec_t (B10)", "block_members (RS1)",
+                           "gather_blocks (RS2)"):
+            row["launches"] = launches[row["name"]]
 
     # bench.py's S3DIS test metrics: 14 blocks x 4096 points of surface-
     # sampled 1 m blocks, per-block LP on its sharpened trained_like

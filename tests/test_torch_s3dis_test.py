@@ -1,6 +1,8 @@
 """The S3DIS test path on the CPU against the JAX package: the room sweep
 (room_to_blocks, S3DISTestRooms), S3DISTrainer.test with per-block and
-room-level label propagation, the .mat dumps, and cli.test_s3dis.
+room-level label propagation, the .mat dumps, and cli.test_s3dis; and the
+sweep on a torch device (load_room's device path over the plain versions
+of ops/room_sweep.py, the host buffer's reader) against the numpy sweep.
 
 Tolerances: the room sweep bitwise (the same float64 arithmetic and the
 same draws from the caller's generator); the test path as stated at each
@@ -16,6 +18,14 @@ import pytest
 import scipy.io
 import torch
 
+from sweep_rooms import (
+    SWEEP_CASES,
+    assert_sweep_equal,
+    cases_in_turn,
+    sweep_on,
+    sweep_room,
+    write_area,
+)
 from test_torch_train import jax_weights, port_cfg
 from weaksuppointcloudseg_tpu import configs as jc
 from weaksuppointcloudseg_tpu.cli import common as jax_common
@@ -73,54 +83,6 @@ def test_room_to_blocks_matches_reference(num_point):
     assert len(got[0]) == 4 * 2 - 1  # the sparse corner block is dropped
     empty = s3dis.room_to_blocks(room[:50], num_point)
     assert empty[0].shape == (0, num_point, 9) and empty[1].shape == (0, num_point)
-
-
-def as_room(xyz, rng):
-    rgb = rng.uniform(0, 255, (len(xyz), 3))
-    lab = rng.integers(0, 13, len(xyz))
-    return np.concatenate([xyz, rgb, lab[:, None]], 1)
-
-
-def counted_room(rng, counts):
-    """A room whose block (i, j) holds counts[i][j] points, all strictly
-    inside it (no point on an edge), in shuffled order."""
-    xyz = [rng.uniform([i + 0.01, j + 0.01, 0], [i + 0.99, j + 0.99, 3], (n, 3))
-           for i, row in enumerate(counts) for j, n in enumerate(row)]
-    xyz = np.concatenate(xyz)
-    return as_room(xyz[rng.permutation(len(xyz))], rng)
-
-
-def sweep_room(case, rng):
-    """(room, num_point, min_points) of one edge-rule case of the sweep."""
-    if case == "interior_edges":  # points on x = 1, 2 and y = 1, 2, corners
-        xyz = rng.uniform([0, 0, 0], [3.5, 2.5, 3], (3000, 3))
-        xyz[:300, 0] = rng.choice([1.0, 2.0], 300)  # in 2 blocks (4 on y = 1, 2)
-        xyz[300:600, 1] = rng.choice([1.0, 2.0], 300)
-        xyz[600:700, 0:2] = rng.choice([1.0, 2.0], (100, 2))  # in 4 blocks
-        return as_room(xyz[rng.permutation(len(xyz))], rng), 64, 20
-    if case == "integer_wall":  # x == limit == 5.0: only in the block below
-        xyz = rng.uniform([0, 0, 0], [5, 3, 3], (4000, 3))
-        xyz[:500, 0] = 5.0
-        xyz[500:900, 1] = 3.0
-        xyz[900:950, 0:2] = [5.0, 3.0]
-        xyz[950:1100, 0:2] = [0.0, 0.0]  # the origin: no block below it
-        return as_room(xyz, rng), 64, 20
-    if case == "fractional_wall":  # x == limit == 4.6, and x < 0
-        xyz = rng.uniform([0, 0, 0], [4.6, 2.3, 3], (4000, 3))
-        xyz[:500, 0] = 4.6
-        xyz[500:900, 1] = 2.3
-        xyz[900:1000, 0] = 4.0
-        xyz[1000:1050, 0] = rng.choice([-1.0, -0.5, -1e-9], 50)  # in no block
-        return as_room(xyz, rng), 64, 20
-    if case == "counts":  # exactly num_point; min_points - 1, at, above
-        return counted_room(rng, [[128, 99, 100], [101, 400, 30]]), 128, 100
-    if case == "none_kept":
-        return counted_room(rng, [[99, 20], [0, 99]]), 128, 100
-    raise ValueError(case)
-
-
-SWEEP_CASES = ["interior_edges", "integer_wall", "fractional_wall", "counts",
-               "none_kept"]
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -190,6 +152,108 @@ def test_load_room_extent_from_the_sweep(dataset):
         assert room_max.dtype == np.float32
         np.testing.assert_array_equal(
             room_max, raw[:, 0:3].max(axis=0).astype(np.float32))
+
+
+# ------------------------------------------- the sweep on a torch device
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_device_sweep_matches_sweep(case, dtype, tmp_path, monkeypatch):
+    """load_room(device=cpu), the device path over the kernels' plain
+    versions: blocks, labels, room_max and the generator bitwise _sweep's."""
+    room, num_point, min_points = sweep_room(case, np.random.default_rng(5))
+    (res,), same_rng = sweep_on("cpu", [(room.astype(dtype), num_point, min_points)],
+                                tmp_path, monkeypatch, 9)
+    assert_sweep_equal(*res, "cpu")
+    assert same_rng
+
+
+def test_device_sweep_rooms_in_turn(tmp_path, monkeypatch):
+    """Every case in turn (float64, then float32) on one generator."""
+    res, same_rng = sweep_on("cpu", cases_in_turn(), tmp_path, monkeypatch, 11)
+    for got, want in res:
+        assert_sweep_equal(got, want, "cpu")
+    assert same_rng
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_block_members_plain_matches_numpy(case, dtype):
+    """ops/room_sweep.py::block_members on a CPU tensor (its plain
+    version): the members and counts of data/s3dis.py::_block_members."""
+    from weaksuppointcloudseg_tpu_torch.ops import room_sweep
+
+    room = sweep_room(case, np.random.default_rng(5))[0].astype(dtype)
+    x, y = room[:, 0].astype(np.float64), room[:, 1].astype(np.float64)
+    num_x, num_y = int(np.ceil(x.max() - 1)) + 1, int(np.ceil(y.max() - 1)) + 1
+    members, _, counts = s3dis._block_members(x, y, num_x, num_y)
+    got_m, got_c = room_sweep.block_members(torch.from_numpy(room), num_x, num_y)
+    assert got_m.dtype == got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_c.numpy(), counts)
+    np.testing.assert_array_equal(got_m.numpy()[:counts.sum()], members)
+
+
+@pytest.mark.parametrize("raw,grid", [
+    (torch.zeros((10, 7), dtype=torch.int64), (2, 2)),  # not a float room
+    (torch.zeros((0, 7)), (2, 2)),  # no point
+    (torch.zeros((10, 7)), (111, 111)),  # more blocks than the kernel holds
+])
+def test_sweep_wrappers_reject(raw, grid):
+    """The sweep's wrappers refuse what the kernels do not take, on the
+    CPU as on the card; the gather wants rgb and a label (7 columns)."""
+    from weaksuppointcloudseg_tpu_torch.ops import room_sweep
+
+    with pytest.raises(ValueError):
+        room_sweep.block_members(raw, *grid)
+    members = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="C >= 7"):
+        room_sweep.gather_blocks(torch.zeros((10, 6)), members, members[None],
+                                 (1, 1, 1))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_read_room_into_a_reused_buffer(dtype, tmp_path):
+    """A C-order float .npy is read straight into the host buffer (in
+    slices, at once), equal to np.load; the buffer is reused for a smaller
+    room and grows for a larger one; a payload cut short raises."""
+    rng = np.random.default_rng(0)
+    rooms = [rng.uniform(0, 9, (n, 7)).astype(dtype) for n in (500, 300, 900)]
+    paths = write_area(str(tmp_path), rooms)
+    buf = s3dis._HostBuffer(torch.device("cpu"))
+    ptrs = []
+    for path, room in zip(paths, rooms):
+        got = s3dis.read_room(path, buf)
+        assert got.dtype == dtype and got.flags.c_contiguous
+        np.testing.assert_array_equal(got, np.load(path))
+        ptrs.append(got.ctypes.data)
+    assert ptrs[1] == ptrs[0] != ptrs[2]
+    with open(paths[2], "r+b") as f:  # a payload cut short
+        f.truncate(os.path.getsize(paths[2]) - 8)
+    with pytest.raises(ValueError, match="8 bytes short"):
+        s3dis.read_room(paths[2], buf)
+
+
+def test_read_room_falls_back(tmp_path, monkeypatch):
+    """A Fortran-order .npy and a .txt room go through np.load and
+    np.loadtxt, then into the buffer; an int room as float64."""
+    rng = np.random.default_rng(1)
+    room = rng.uniform(0, 9, (400, 7))
+    fortran = str(tmp_path / "f.npy")
+    np.save(fortran, np.asfortranarray(room))
+    ints = str(tmp_path / "i.npy")
+    np.save(ints, room.astype(np.int32))
+    txt = str(tmp_path / "t.txt")
+    np.savetxt(txt, room)
+    loads = []
+    load = np.load
+    monkeypatch.setattr(np, "load", lambda *a, **k: loads.append(a) or load(*a, **k))
+    buf = s3dis._HostBuffer(torch.device("cpu"))
+    np.testing.assert_array_equal(s3dis.read_room(fortran, buf), room)
+    got = s3dis.read_room(ints, buf)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, room.astype(np.int32))
+    assert len(loads) == 2
+    np.testing.assert_array_equal(s3dis.read_room(txt, buf), np.loadtxt(txt))
 
 
 # --------------------------------------------------------- the test path
@@ -299,6 +363,21 @@ def test_room_label_prop_pads_to_eight_blocks(monkeypatch, trainers):
 
 
 # ------------------------------------------------------------------- CLI
+
+def test_room_label_prop_tensor_blocks_match_arrays(trainers):
+    """room_label_prop builds the cloud from tensor blocks (load_room's on
+    a device) as from arrays: the same labels."""
+    _, pt = trainers
+    rng = np.random.default_rng(6)
+    blocks = rng.uniform(0, 1, (5, N, 9)).astype(np.float32)
+    prob = rng.dirichlet(np.ones(13), (5, N)).astype(np.float32)
+    room_max = np.array([3.0, 2.0, 2.5], np.float32)
+    want = pt.room_label_prop(blocks, prob, room_max)
+    got = pt.room_label_prop(torch.from_numpy(blocks), prob, room_max)
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+    assert (want != prob.argmax(-1)).any()
+
 
 def test_test_s3dis_flags_match_reference():
     """The reference S3DIS test CLI's flags, plus the port's --device and

@@ -138,7 +138,8 @@ def test_train_epoch_spans(shapenet_dir):
 
 
 def test_room_test_spans(s3dis_dir, monkeypatch):
-    """Per room: one test.room holding room.read, room.sweep, ceil(K / bs)
+    """Per room: one test.room holding room.read, room.sweep (with one
+    room.upload: the room swept on the trainer's device), ceil(K / bs)
     room.forward and one lp.room; the lp.room holds lp.features, lp.plan
     and one lp.cg with one lp.cg_step per matvec the CG ran."""
     matvecs = []
@@ -163,6 +164,7 @@ def test_room_test_spans(s3dis_dir, monkeypatch):
     assert all(0 < m < trainer.cfg.labelprop.cg_iters for m in matvecs)
     for room, k, m in zip(room_spans, ks, matvecs):
         for name, count in (("room.read", 1), ("room.sweep", 1),
+                            ("room.upload", 1),
                             ("room.forward", math.ceil(k / ROOM_BS)),
                             ("lp.room", 1)):
             assert len(within(spans, room, name)) == count, name

@@ -17,16 +17,24 @@ S3DIS/DataIO_S3DIS.py):
 Channels 0:3 are xyz with the block xy-centred, 3:6 rgb/255, 6:9 xyz
 normalized by the room extent. The reference's random block corners
 (``random_sample``) are not ported: the test path sweeps the regular grid.
+
+Given a device, ``S3DISTestRooms.load_room`` sweeps on it: the raw room
+goes to the device once, its bucketing, gather and normalisation run
+there (ops/room_sweep.py) and the blocks stay there; the host makes the
+same numpy draws from the block counts alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
+from weaksuppointcloudseg_tpu_torch.ops import room_sweep
 from weaksuppointcloudseg_tpu_torch.utils.profiling import span
 
 NUM_CLASSES = 13
@@ -198,6 +206,29 @@ def _block_members(x: np.ndarray, y: np.ndarray, num_x: int, num_y: int
     return members, starts, counts
 
 
+def _grid(limit: np.ndarray) -> Tuple[int, int]:
+    """(num_x, num_y): the blocks of the sweep's grid over a room of
+    extent ``limit`` (either may be 0 or less: no block)."""
+    return tuple(int(np.ceil((limit[a] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+                 for a in (0, 1))
+
+
+def _draws(counts: np.ndarray, num_point: int, min_points: int,
+           rng: np.random.Generator, alloc) -> np.ndarray:
+    """The draws of every block with at least ``min_points`` members, in
+    the reference's order (i outer, j inner), one call per kept block, so
+    the caller's generator ends where the reference's does: [K, num_point]
+    positions among the bucketed members (a block's start plus its draws),
+    in ``alloc(shape)``'s array."""
+    counts = counts.astype(np.int64)
+    starts = np.cumsum(counts) - counts
+    kept = np.flatnonzero(counts >= min_points)
+    picks = alloc((len(kept), num_point))
+    for row, b in zip(picks, kept):
+        row[:] = starts[b] + sample_to_num_points(int(counts[b]), num_point, rng)
+    return picks
+
+
 def _sweep(data_label: np.ndarray, num_point: int, min_points: int,
            rng: Optional[np.random.Generator]
            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -206,21 +237,17 @@ def _sweep(data_label: np.ndarray, num_point: int, min_points: int,
     x = data_label[:, 0].astype(np.float64)
     y = data_label[:, 1].astype(np.float64)
     limit = np.array([x.max(), y.max(), data_label[:, 2].max()], np.float64)
-    num_x = int(np.ceil((limit[0] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
-    num_y = int(np.ceil((limit[1] - BLOCK_SIZE) / BLOCK_SIZE)) + 1
+    num_x, num_y = _grid(limit)
     empty = (np.zeros((0, num_point, 9), np.float32),
              np.zeros((0, num_point), np.int32), limit)
     if num_x <= 0 or num_y <= 0:
         return empty
-    members, starts, counts = _block_members(x, y, num_x, num_y)
-    # the draws in the reference's order (i outer, j inner), one call per
-    # kept block, so the caller's generator ends where the reference's does
-    picks = [starts[b] + sample_to_num_points(int(counts[b]), num_point, rng)
-             for b in np.flatnonzero(counts >= min_points)]
-    if not picks:
+    members, _, counts = _block_members(x, y, num_x, num_y)
+    picks = _draws(counts, num_point, min_points, rng,
+                   lambda shape: np.empty(shape, np.int64))
+    if not len(picks):
         return empty
-    rows = members[np.concatenate(picks)]
-    picked = data_label[rows]
+    picked = data_label[members[picks.reshape(-1)]]
     pts = picked[:, 0:6].astype(np.float64).reshape(len(picks), num_point, 6)
     pts[..., 3:6] /= 255.0
     out = np.empty((len(picks), num_point, 9), np.float32)
@@ -229,6 +256,33 @@ def _sweep(data_label: np.ndarray, num_point: int, min_points: int,
     out[..., 0:6] = pts
     labels = picked[:, -1].astype(np.int32).reshape(len(picks), num_point)
     return out, labels, limit
+
+
+def _sweep_device(raw: torch.Tensor, num_point: int, min_points: int,
+                  rng: Optional[np.random.Generator], picks_buf: "_HostBuffer"
+                  ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """:func:`_sweep` of a raw room on a torch device, bitwise: (blocks [K,
+    num_point, 9] f32 and labels [K, num_point] i32 on that device, the
+    extent ``limit`` [3] f64). The extent and the block counts are fetched
+    (two synchronises); the draws are :func:`_sweep`'s, on the caller's
+    generator, and their member positions go back through ``picks_buf``."""
+    rng = rng or np.random.default_rng(0)
+    dev = raw.device
+    limit = raw[:, 0:3].amax(0).double().cpu().numpy()
+    num_x, num_y = _grid(limit)
+    empty = (torch.zeros((0, num_point, 9), dtype=torch.float32, device=dev),
+             torch.zeros((0, num_point), dtype=torch.int32, device=dev), limit)
+    if num_x <= 0 or num_y <= 0:
+        return empty
+    members, counts = room_sweep.block_members(raw, num_x, num_y)
+    counts = counts.cpu().numpy()
+    picks = _draws(counts, num_point, min_points, rng,
+                   lambda shape: picks_buf.fill(shape, np.int32))
+    if not len(picks):
+        return empty
+    blocks, labels = room_sweep.gather_blocks(
+        raw, members[:int(counts.sum())], picks_buf.upload(), limit)
+    return blocks, labels, limit
 
 
 def room_to_blocks(data_label: np.ndarray, num_point: int, *,
@@ -288,6 +342,120 @@ def synthetic_blocks(*, num_rooms_per_area: int = 2,
             np.concatenate(all_labels).astype(np.int32), room_rows)
 
 
+_TORCH_DTYPES = {np.float32: torch.float32, np.float64: torch.float64,
+                 np.int32: torch.int32}
+
+
+class _HostBuffer:
+    """Host memory that feeds one device, reused from room to room and
+    grown to the largest room seen: page-locked where the device is CUDA,
+    so that the copy runs without blocking the host. Before it is refilled
+    it waits on the event recorded after the copy that last read it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._pinned = device.type == "cuda"
+        self._bytes = torch.empty(0, dtype=torch.uint8)
+        self._filled: Optional[torch.Tensor] = None
+        self._copied = None  # the event after the last copy
+
+    def fill(self, shape, dtype) -> np.ndarray:
+        """A writable array of ``shape`` and ``dtype`` (float32, float64 or
+        int32) over the buffer, to be filled and then uploaded."""
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+        dtype = _TORCH_DTYPES[np.dtype(dtype).type]
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        if self._bytes.numel() < nbytes:
+            self._bytes = torch.empty(nbytes, dtype=torch.uint8,
+                                      pin_memory=self._pinned)
+        self._filled = self._bytes[:nbytes].view(dtype).view(tuple(shape))
+        return self._filled.numpy()
+
+    def upload(self) -> torch.Tensor:
+        """The filled array on the device, one copy that does not block the
+        host (on the CPU: the buffer itself, valid until the next fill)."""
+        out = self._filled.to(self.device, non_blocking=True)
+        if self._pinned:
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return out
+
+
+def _npy_header(f) -> Optional[Tuple[tuple, np.dtype]]:
+    """(shape, dtype) of an open .npy file whose payload is read as it is
+    stored (2-D, C order, native float32 or float64), the file then at the
+    payload; None for any other."""
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    else:
+        return None
+    if (len(shape) != 2 or fortran or not dtype.isnative
+            or dtype.type not in (np.float32, np.float64)):
+        return None
+    return shape, dtype
+
+
+READ_WORKERS = 4  # threads that read one room's payload at once
+
+
+def _read_into(path: str, offset: int, out: np.ndarray) -> None:
+    """Fill ``out`` with the bytes of ``path`` from ``offset`` on, in
+    READ_WORKERS slices read at once: the copy out of the page cache is
+    the cost, and each ``os.preadv`` releases the interpreter lock (an
+    86 MB room on the card's host: ~22 ms in one read, 7.5-10 ms in 4)."""
+    flat = memoryview(out).cast("B")
+    n = len(flat)
+    if n == 0:
+        return
+    step = -(-n // READ_WORKERS)
+    fd = os.open(path, os.O_RDONLY)
+
+    def part(a: int) -> None:
+        b = min(n, a + step)
+        while a < b:
+            got = os.preadv(fd, [flat[a:b]], offset + a)
+            if got == 0:
+                raise ValueError(f"{path}: the payload ends {n - a} bytes short")
+            a += got
+
+    try:
+        with ThreadPoolExecutor(READ_WORKERS) as pool:
+            list(pool.map(part, range(0, n, step)))
+    finally:
+        os.close(fd)
+
+
+def read_room(path: str, buf: _HostBuffer) -> np.ndarray:
+    """The raw room at ``path`` [n, C] in ``buf``, float32 or float64 rows
+    as stored (other types as float64): a 2-D C-order float .npy straight
+    into the buffer, any other room through ``np.load`` or ``np.loadtxt``
+    and copied in. Returns the buffer's array, valid until its next fill."""
+    if path.endswith(".npy"):
+        with open(path, "rb") as f:
+            header = _npy_header(f)
+            offset = f.tell()
+        if header is not None:
+            out = buf.fill(*header)
+            _read_into(path, offset, out)
+            return out
+        data = np.load(path)
+    elif path.endswith(".txt"):
+        data = np.loadtxt(path)
+    else:
+        raise ValueError(f"unknown room file type: {path}")
+    if data.ndim != 2:
+        raise ValueError(f"{path}: shape {data.shape}, expected [n, C]")
+    keep = data.dtype.type in (np.float32, np.float64)
+    out = buf.fill(data.shape, data.dtype if keep else np.float64)
+    out[...] = data
+    return out
+
+
 class S3DISTestRooms:
     """The raw rooms of one area, listed in ``meta/<area>_data_label.txt``
     under ``base_dir`` (paths relative to it), swept room by room."""
@@ -299,11 +467,13 @@ class S3DISTestRooms:
         with open(meta) as f:
             self.room_paths = [os.path.join(base_dir, line.strip())
                                for line in f if line.strip()]
+        self._bufs: Optional[Tuple[_HostBuffer, _HostBuffer]] = None
 
     def __len__(self) -> int:
         return len(self.room_paths)
 
-    def load_room(self, i: int, rng: Optional[np.random.Generator] = None):
+    def load_room(self, i: int, rng: Optional[np.random.Generator] = None,
+                  device=None):
         """(blocks [K, N, 9], labels [K, N], room path, room_max [3] f32).
 
         ``room_max`` is the room's xyz extent in metres, the scale of block
@@ -312,8 +482,19 @@ class S3DISTestRooms:
         computes it in its one pass over the room. Spans
         (utils/profiling.py::span): ``room.read`` (the file) and
         ``room.sweep`` (the sweep, the extent included).
+
+        Without ``device`` the blocks and labels are numpy arrays from
+        :func:`_sweep`. With a torch ``device`` they are tensors there, from
+        :func:`_sweep_device`, bitwise the same with the same draws:
+        ``room.read`` fills a host buffer that the reader reuses from room
+        to room, and ``room.upload``, inside ``room.sweep``, copies the room
+        to the device once. A device sweep refuses a room whose grid has
+        more than ``ops/room_sweep.py::MAX_BLOCKS`` blocks (12,288 square
+        metres of floor plan; the numpy sweep has no such limit).
         """
         path = self.room_paths[i]
+        if device is not None:
+            return self._load_room_on(torch.device(device), path, rng)
         with span("room.read"):
             if path.endswith(".txt"):
                 data_label = np.loadtxt(path)
@@ -324,5 +505,20 @@ class S3DISTestRooms:
         with span("room.sweep"):
             blocks, labels, limit = _sweep(data_label, self.num_point,
                                            MIN_POINTS, rng)
+            room_max = limit.astype(np.float32)
+        return blocks, labels, path, room_max
+
+    def _load_room_on(self, device: torch.device, path: str,
+                      rng: Optional[np.random.Generator]):
+        if self._bufs is None or self._bufs[0].device != device:
+            self._bufs = (_HostBuffer(device), _HostBuffer(device))
+        room_buf, picks_buf = self._bufs
+        with span("room.read"):
+            read_room(path, room_buf)
+        with span("room.sweep"):
+            with span("room.upload"):
+                raw = room_buf.upload()
+            blocks, labels, limit = _sweep_device(raw, self.num_point,
+                                                  MIN_POINTS, rng, picks_buf)
             room_max = limit.astype(np.float32)
         return blocks, labels, path, room_max

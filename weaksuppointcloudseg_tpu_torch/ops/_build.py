@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+D = ctypes.c_double
 # argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "knn_edge_launch": [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P,
@@ -55,6 +56,9 @@ SIGNATURES = {
     "affinity_matvec_launch": [P] * 6 + [I] * 6 + [P] * 4,
     "gather_rows_launch": [P, P, I, I, I, I, I, P, P],
     "knn_gather_launch": [P, P] + [I] * 7 + [P] * 5,
+    "room_sweep_members_launch": [P, I, LL, I, I, I, I, I, P, P, P, P, P],
+    "room_sweep_gather_launch": [P, I, LL, I, P, LL, P, I, I, D, D, D, P, P,
+                                 P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

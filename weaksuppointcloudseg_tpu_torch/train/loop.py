@@ -441,10 +441,14 @@ class S3DISTrainer(_TrainerBase):
         ``room_lp``, one matrix-free LP over every block point of the room
         in room coordinates (:meth:`room_label_prop`) replaces it.
 
+        Each room is swept on the trainer's device and its blocks stay
+        there: a chunk is a slice of them, and the labels reach the host
+        once, for the confusion count.
+
         Spans (utils/profiling.py::span): ``test.room`` per room, holding
         ``room.read`` and ``room.sweep`` (:meth:`S3DISTestRooms.load_room`),
-        a ``room.forward`` per chunk (upload, eval forward, softmax, the
-        per-block LP where on, the fetch to the host) and ``lp.room``.
+        a ``room.forward`` per chunk (eval forward, softmax, the per-block
+        LP where on, the fetch to the host) and ``lp.room``.
         """
         if use_label_prop is None:
             use_label_prop = self.style == "Full"
@@ -459,15 +463,15 @@ class S3DISTrainer(_TrainerBase):
         logits_fn = make_eval_logits_fn(self.model)
         for r in range(len(rooms)):
             with span("test.room"):
-                blocks, labels, path, room_max = rooms.load_room(r, rng=self.np_rng)
+                blocks, labels, path, room_max = rooms.load_room(
+                    r, rng=self.np_rng, device=self.device)
                 room_prob = []
                 for start in range(0, len(blocks), bs):
                     with span("room.forward"):
                         # the eval forward is per block: the reference pads
                         # the last chunk to its compiled shape, which
                         # changes no real block
-                        chunk = torch.from_numpy(
-                            blocks[start:start + bs]).to(self.device)
+                        chunk = blocks[start:start + bs]
                         with torch.inference_mode():
                             prob = torch.softmax(logits_fn(chunk), dim=-1)
                             if use_label_prop and not room_lp:
@@ -486,13 +490,15 @@ class S3DISTrainer(_TrainerBase):
                     pred = self.room_label_prop(blocks, prob, room_max)
                 else:
                     pred = prob.argmax(-1)
+                labels = labels.cpu().numpy()
                 conf.update(pred, labels)
                 if pred_dir is not None:
-                    self._dump_room(pred_dir, path, blocks, pred, labels)
+                    self._dump_room(pred_dir, path, blocks.cpu().numpy(), pred,
+                                    labels)
         return {"miou": conf.miou, "accuracy": conf.accuracy,
                 "per_class_iou": conf.iou}
 
-    def room_label_prop(self, blocks: np.ndarray, prob: np.ndarray,
+    def room_label_prop(self, blocks, prob: np.ndarray,
                         room_max: np.ndarray) -> np.ndarray:
         """One label propagation across all blocks of a room.
 
@@ -507,7 +513,8 @@ class S3DISTrainer(_TrainerBase):
         propagate/label_prop.py::check_gram_cancellation).
 
         Args:
-          blocks: [K, N, 9] room blocks (room_to_blocks layout).
+          blocks: [K, N, 9] room blocks (room_to_blocks layout), a tensor
+            (on any device: the cloud is built where it lies) or an array.
           prob: [K, N, C] per-block softmax probabilities.
           room_max: [3] room extent in metres (load_room's scale).
 
@@ -518,19 +525,17 @@ class S3DISTrainer(_TrainerBase):
             lp = self.cfg.labelprop
             k_blocks, n, c = prob.shape
             k_pad = -(-k_blocks // 8) * 8
-            xyz = (blocks[:, :, 6:9] * room_max).astype(np.float32)
-            rgb = blocks[:, :, 3:6].astype(np.float32)
-            prob = prob.astype(np.float32)
+            blocks = torch.as_tensor(blocks).to(self.device, torch.float32)
+            scale = torch.from_numpy(np.asarray(room_max, np.float32)).to(self.device)
+            xyz = blocks[:, :, 6:9] * scale
+            rgb = blocks[:, :, 3:6]
+            prob = torch.from_numpy(np.asarray(prob, np.float32)).to(self.device)
             if k_pad > k_blocks:
                 extra = k_pad - k_blocks
-                pad_xyz = (np.asarray(room_max, np.float32) + 2.0).reshape(1, 1, 3)
-                xyz = np.concatenate(
-                    [xyz, np.broadcast_to(pad_xyz, (extra, n, 3))])
-                rgb = np.concatenate([rgb, np.zeros((extra, n, 3), np.float32)])
-                prob = np.concatenate(
-                    [prob, np.full((extra, n, c), 1.0 / c, np.float32)])
-            put = lambda a: torch.from_numpy(
-                np.ascontiguousarray(a).reshape(1, -1, a.shape[-1])).to(self.device)
+                xyz = torch.cat([xyz, (scale + 2.0).expand(extra, n, 3)])
+                rgb = torch.cat([rgb, rgb.new_zeros((extra, n, 3))])
+                prob = torch.cat([prob, prob.new_full((extra, n, c), 1.0 / c)])
+            put = lambda t: t.reshape(1, -1, t.shape[-1])  # noqa: E731
             # the dense [N_room, N_room] affinity would not fit: only the
             # matrix-free and point-sharded solvers reach room scale
             solver = "sharded" if lp.solver == "sharded" else "cg_matfree"
