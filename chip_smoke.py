@@ -1643,10 +1643,10 @@ def check_room_sweep(report):
     require(torch.equal(counts, want_c) and torch.equal(members[:m], want_m),
             f"block_members (RS1) {len(room)} rows, {num_x} x {num_y} blocks: "
             f"not bitwise its plain version")
-    picks = s3dis._draws(counts.cpu().numpy(), SWEEP_POINTS, s3dis.MIN_POINTS,
-                         np.random.default_rng(1),
-                         lambda shape: np.empty(shape, np.int32))
-    picks = torch.from_numpy(picks).cuda()
+    picks_buf = s3dis._HostBuffer(raw.device)
+    s3dis._draws(counts.cpu().numpy(), SWEEP_POINTS, s3dis.MIN_POINTS,
+                 np.random.default_rng(1), picks_buf)
+    picks = picks_buf.upload()
     members = members[:m]
     blocks, labels = room_sweep.gather_blocks(raw, members, picks, limit)
     want_b, want_l = room_sweep.gather_blocks_ref(raw, members, picks, limit)

@@ -1,13 +1,16 @@
-"""Raw rooms that stress the S3DIS block sweep, and the comparison of the
-sweep on a torch device with the numpy one; no JAX (the card's tests,
-which run without it, share them with the CPU tests).
+"""Raw rooms that stress the S3DIS block sweep, and the comparison of
+``load_room`` on a torch device with a reference sweep; no JAX (the
+card's tests, which run without it, share them with the CPU tests).
 
 ``sweep_room(case, rng)`` gives (room [n, 7], num_point, min_points) of one
 of ``SWEEP_CASES``: points on the inclusive block bounds (an edge in 2
 blocks, a corner in 4, walls at an integer and a fractional far extent,
 points off the grid) and the block counts around ``num_point`` and
 ``min_points``. ``write_area`` lays rooms out as an S3DIS test area;
-``sweep_on`` sweeps them through ``load_room(device=...)`` and ``_sweep``.
+``sweep_on`` sweeps them through ``load_room(device=...)`` and through a
+reference: the JAX package's ``room_to_blocks`` in the CPU tests, and
+``plain_sweep`` (the port's sweep on the CPU, over ops/room_sweep.py's
+plain versions) in the card's.
 """
 
 import copy
@@ -101,32 +104,46 @@ def write_area(base, rooms, area="area5"):
     return [os.path.join(base, r) for r in rel]
 
 
-def sweep_on(device, rooms_and_params, base, monkeypatch, seed):
+def plain_sweep(room, num_point, min_points, rng):
+    """(blocks, labels, room_max) of ``room`` swept on the CPU by the
+    port (room_to_blocks: load_room's sweep over ops/room_sweep.py's plain
+    versions), room_max the room's xyz max as float32."""
+    blocks, labels = s3dis.room_to_blocks(room, num_point,
+                                          min_points=min_points, rng=rng)
+    return blocks, labels, room[:, 0:3].max(0).astype(np.float32)
+
+
+def sweep_on(device, rooms_and_params, base, monkeypatch, seed, reference):
     """Each (room, num_point, min_points) through load_room(device=...) on
-    one generator, and through _sweep on a copy of it: both results per
+    one generator (one reader per num_point, its host buffers reused), and
+    through ``reference(room, num_point, min_points, rng)`` -> (blocks,
+    labels, room_max) as numpy arrays on a copy of it: both results per
     room, and whether the generators end in the same state."""
     rng = np.random.default_rng(seed)
     ref = copy.deepcopy(rng)
     write_area(str(base), [r for r, _, _ in rooms_and_params])
-    out = []
+    readers, out = {}, []
     for i, (room, num_point, min_points) in enumerate(rooms_and_params):
         monkeypatch.setattr(s3dis, "MIN_POINTS", min_points)
-        rooms = s3dis.S3DISTestRooms(str(base), "area5", num_point=num_point)
-        got = rooms.load_room(i, rng=rng, device=device)
-        out.append((got, s3dis._sweep(room, num_point, min_points, ref)))
+        if num_point not in readers:
+            readers[num_point] = s3dis.S3DISTestRooms(str(base), "area5",
+                                                      num_point=num_point)
+        got = readers[num_point].load_room(i, rng=rng, device=device)
+        out.append((got, reference(room, num_point, min_points, ref)))
     return out, rng.random() == ref.random()
 
 
 def assert_sweep_equal(got, want, device):
     """load_room's (blocks, labels, path, room_max) on ``device`` bitwise
-    _sweep's (blocks, labels, limit)."""
+    the reference's (blocks, labels, room_max)."""
     blocks, labels, _, room_max = got
     assert blocks.device.type == labels.device.type == torch.device(device).type
     assert blocks.dtype == torch.float32 and labels.dtype == torch.int32
     assert isinstance(room_max, np.ndarray) and room_max.dtype == np.float32
+    assert blocks.shape == want[0].shape and labels.shape == want[1].shape
     assert torch.equal(blocks.cpu(), torch.from_numpy(want[0]))
     assert torch.equal(labels.cpu(), torch.from_numpy(want[1]))
-    assert np.array_equal(room_max, want[2].astype(np.float32))
+    assert np.array_equal(room_max, want[2])
 
 
 def cases_in_turn():

@@ -21,11 +21,11 @@ from sweep_rooms import (
     assert_sweep_equal,
     cases_in_turn,
     large_room,
+    plain_sweep,
     sweep_on,
     sweep_room,
 )
 from weaksuppointcloudseg_tpu_torch import configs
-from weaksuppointcloudseg_tpu_torch.data import s3dis
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.ops import (
     affinity,
@@ -1934,11 +1934,12 @@ def card():
 def test_room_sweep_on_card_matches_sweep(card, case, dtype, tmp_path,
                                           monkeypatch):
     """load_room on the card: blocks, labels, room_max and the generator
-    bitwise _sweep's, through both kernels (none when no block is kept)."""
+    bitwise the sweep on the CPU over the plain versions, through both
+    kernels (none when no block is kept)."""
     room, num_point, min_points = sweep_room(case, np.random.default_rng(5))
     before = (room_sweep.block_members.launches, room_sweep.gather_blocks.launches)
     (res,), same_rng = sweep_on("cuda", [(room.astype(dtype), num_point, min_points)],
-                                tmp_path, monkeypatch, 9)
+                                tmp_path, monkeypatch, 9, plain_sweep)
     assert_sweep_equal(*res, "cuda")
     assert same_rng
     kept = len(res[1][0]) > 0
@@ -1948,7 +1949,8 @@ def test_room_sweep_on_card_matches_sweep(card, case, dtype, tmp_path,
 
 def test_room_sweep_on_card_rooms_in_turn(card, tmp_path, monkeypatch):
     """Every case in turn (float64, then float32) on one generator."""
-    res, same_rng = sweep_on("cuda", cases_in_turn(), tmp_path, monkeypatch, 11)
+    res, same_rng = sweep_on("cuda", cases_in_turn(), tmp_path, monkeypatch, 11,
+                             plain_sweep)
     for got, want in res:
         assert_sweep_equal(got, want, "cuda")
     assert same_rng
@@ -1956,12 +1958,12 @@ def test_room_sweep_on_card_rooms_in_turn(card, tmp_path, monkeypatch):
 
 def test_room_sweep_on_card_large_room(card, tmp_path, monkeypatch):
     """A surface-sampled 8 x 6 x 3 m room of ~1.5 M float64 points (its far
-    walls on block edges), at 4096 points a block: bitwise _sweep, twice
-    on one reader (the host buffer reused)."""
+    walls on block edges), at 4096 points a block: bitwise the sweep on
+    the CPU, twice on one reader (the host buffer reused)."""
     room = large_room(np.random.default_rng(3))
     assert 1_400_000 < len(room) < 1_600_000
     res, same_rng = sweep_on("cuda", [(room, 4096, 100)] * 2, tmp_path,
-                             monkeypatch, 2**31 + 12345)
+                             monkeypatch, 2**31 + 12345, plain_sweep)
     for got, want in res:
         assert len(want[0]) == 48
         assert_sweep_equal(got, want, "cuda")
@@ -1971,15 +1973,16 @@ def test_room_sweep_on_card_large_room(card, tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("case", SWEEP_CASES + ["large"])
 def test_room_sweep_members_on_card(card, case, dtype):
-    """The bucketing kernels' members and counts bitwise _block_members'
-    (each block's rows in ascending index, edge copies merged)."""
+    """The bucketing kernels' members and counts bitwise their plain
+    version's on the CPU (each block's rows in ascending index, edge copies
+    merged)."""
     room = (large_room(np.random.default_rng(4)) if case == "large"
             else sweep_room(case, np.random.default_rng(5))[0]).astype(dtype)
     x, y = room[:, 0].astype(np.float64), room[:, 1].astype(np.float64)
     num_x, num_y = int(np.ceil(x.max() - 1)) + 1, int(np.ceil(y.max() - 1)) + 1
-    members, _, counts = s3dis._block_members(x, y, num_x, num_y)
+    members, counts = room_sweep.block_members_ref(torch.from_numpy(room),
+                                                   num_x, num_y)
     got_m, got_c = room_sweep.block_members(torch.from_numpy(room).cuda(),
                                             num_x, num_y)
-    assert torch.equal(got_c.cpu(), torch.from_numpy(counts).int())
-    assert torch.equal(got_m[:int(counts.sum())].cpu(),
-                       torch.from_numpy(members).int())
+    assert torch.equal(got_c.cpu(), counts)
+    assert torch.equal(got_m[:len(members)].cpu(), members)

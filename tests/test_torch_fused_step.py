@@ -38,6 +38,7 @@ from weaksuppointcloudseg_tpu.models import layers as jlayers
 from weaksuppointcloudseg_tpu.train.steps import _loss_fn
 from weaksuppointcloudseg_tpu_torch import configs as pc
 from weaksuppointcloudseg_tpu_torch.losses.weaksup import masked_softmax_ce
+from weaksuppointcloudseg_tpu_torch.models import layers
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.train.steps import (
     fused_route,
@@ -199,16 +200,20 @@ def test_routes_of_bf16_training():
     reusable graph) and reuses the transform stage's graph where the loss
     and the stage share coordinates and k covers the loss's; f32 and the
     CPU take the plain loss (the route needs no card)."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def model_route(m, device):  # what DGCNNSeg.forward asks
+        return layers.fused_route(m.compute_dtype, m.cfg.use_fused_knn, device)
+
     cfg = port_cfg(jax_cfg(True))
     model = DGCNNSeg(cfg.model)
-    assert model._cuda_route() == "fused"
+    assert model_route(model, cuda) and not model_route(model, cpu)
     unfused = DGCNNSeg(dataclasses.replace(cfg.model, use_fused_knn=False))
-    assert unfused._cuda_route() == "plain"
+    assert not model_route(unfused, cuda)
     f32 = DGCNNSeg(dataclasses.replace(cfg.model, compute_dtype="float32"))
-    assert f32._cuda_route() == "plain"
+    assert not model_route(f32, cuda)
     f32_unfused = DGCNNSeg(dataclasses.replace(f32.cfg, use_fused_knn=False))
-    assert f32_unfused._cuda_route() == "plain"
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert not model_route(f32_unfused, cuda)
     cfg = dataclasses.replace(cfg, weaksup=dataclasses.replace(
         cfg.weaksup, smooth_knn=cfg.model.k))
     assert fused_route(cfg, cuda) and smooth_graph_reusable(cfg, cuda)

@@ -1,8 +1,8 @@
 """The S3DIS test path on the CPU against the JAX package: the room sweep
-(room_to_blocks, S3DISTestRooms), S3DISTrainer.test with per-block and
-room-level label propagation, the .mat dumps, and cli.test_s3dis; and the
-sweep on a torch device (load_room's device path over the plain versions
-of ops/room_sweep.py, the host buffer's reader) against the numpy sweep.
+(room_to_blocks, S3DISTestRooms.load_room on the CPU, over the plain
+versions of ops/room_sweep.py, and the host buffer's reader),
+S3DISTrainer.test with per-block and room-level label propagation, the
+.mat dumps, and cli.test_s3dis.
 
 Tolerances: the room sweep bitwise (the same float64 arithmetic and the
 same draws from the caller's generator); the test path as stated at each
@@ -122,6 +122,13 @@ def test_one_pass_sweep_rooms_in_turn():
     assert rg.random() == rw.random()
 
 
+def as_numpy(loaded):
+    """load_room's (blocks, labels, path, room_max) with the tensors as
+    numpy arrays."""
+    blocks, labels, path, room_max = loaded
+    return blocks.numpy(), labels.numpy(), path, room_max
+
+
 def test_load_room_matches_reference(dataset):
     got = s3dis.S3DISTestRooms(dataset, "area5", num_point=N)
     want = js3dis.S3DISTestRooms(dataset, "area5", num_point=N)
@@ -129,13 +136,15 @@ def test_load_room_matches_reference(dataset):
     rg, rw = np.random.default_rng(2), np.random.default_rng(2)
     for i in range(len(got)):  # one generator across rooms, as test() draws
         a, b = got.load_room(i, rng=rg), want.load_room(i, rng=rw)
-        for x, y in zip(a, b):
+        assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in a[:2])
+        for x, y in zip(as_numpy(a), b):
             np.testing.assert_array_equal(x, y)
         assert a[3].dtype == np.float32 and a[0].shape[1:] == (N, 9)
     txt = os.path.join(os.path.dirname(got.room_paths[0]), "room.txt")
     np.savetxt(txt, np.load(got.room_paths[0])[:500])
     got.room_paths = want.room_paths = [txt]
-    for x, y in zip(got.load_room(0), want.load_room(0)):
+    for x, y in zip(as_numpy(got.load_room(0)), want.load_room(0)):
         np.testing.assert_array_equal(x, y)
 
 
@@ -148,29 +157,39 @@ def test_load_room_extent_from_the_sweep(dataset):
     np.savetxt(txt, np.load(npy)[:700])
     rooms.room_paths = [npy, txt]
     for i, raw in enumerate([np.load(npy), np.loadtxt(txt)]):
-        room_max = rooms.load_room(i)[3]
-        assert room_max.dtype == np.float32
+        blocks, _, _, room_max = rooms.load_room(i)
+        assert isinstance(blocks, torch.Tensor) and room_max.dtype == np.float32
         np.testing.assert_array_equal(
             room_max, raw[:, 0:3].max(axis=0).astype(np.float32))
 
 
 # ------------------------------------------- the sweep on a torch device
 
+def jax_sweep(room, num_point, min_points, rng):
+    """The reference's (blocks, labels) of ``room`` and its room_max, as
+    the JAX package's load_room computes it."""
+    blocks, labels = js3dis.room_to_blocks(room, num_point,
+                                           min_points=min_points, rng=rng)
+    return blocks, labels, room[:, 0:3].max(axis=0).astype(np.float32)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("case", SWEEP_CASES)
 def test_device_sweep_matches_sweep(case, dtype, tmp_path, monkeypatch):
-    """load_room(device=cpu), the device path over the kernels' plain
-    versions: blocks, labels, room_max and the generator bitwise _sweep's."""
+    """load_room(device=cpu) over the kernels' plain versions: blocks,
+    labels, room_max and the generator bitwise the JAX package's sweep of
+    the same room."""
     room, num_point, min_points = sweep_room(case, np.random.default_rng(5))
     (res,), same_rng = sweep_on("cpu", [(room.astype(dtype), num_point, min_points)],
-                                tmp_path, monkeypatch, 9)
+                                tmp_path, monkeypatch, 9, jax_sweep)
     assert_sweep_equal(*res, "cpu")
     assert same_rng
 
 
 def test_device_sweep_rooms_in_turn(tmp_path, monkeypatch):
     """Every case in turn (float64, then float32) on one generator."""
-    res, same_rng = sweep_on("cpu", cases_in_turn(), tmp_path, monkeypatch, 11)
+    res, same_rng = sweep_on("cpu", cases_in_turn(), tmp_path, monkeypatch, 11,
+                             jax_sweep)
     for got, want in res:
         assert_sweep_equal(got, want, "cpu")
     assert same_rng
@@ -180,17 +199,20 @@ def test_device_sweep_rooms_in_turn(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", SWEEP_CASES)
 def test_block_members_plain_matches_numpy(case, dtype):
     """ops/room_sweep.py::block_members on a CPU tensor (its plain
-    version): the members and counts of data/s3dis.py::_block_members."""
+    version): the members and counts of the reference's mask per block,
+    block (i, j) holding i <= x <= i + 1 and j <= y <= j + 1, its members
+    in index order, blocks numbered i * num_y + j."""
     from weaksuppointcloudseg_tpu_torch.ops import room_sweep
 
     room = sweep_room(case, np.random.default_rng(5))[0].astype(dtype)
     x, y = room[:, 0].astype(np.float64), room[:, 1].astype(np.float64)
     num_x, num_y = int(np.ceil(x.max() - 1)) + 1, int(np.ceil(y.max() - 1)) + 1
-    members, _, counts = s3dis._block_members(x, y, num_x, num_y)
+    masks = [np.flatnonzero((x >= i) & (x <= i + 1) & (y >= j) & (y <= j + 1))
+             for i in range(num_x) for j in range(num_y)]
     got_m, got_c = room_sweep.block_members(torch.from_numpy(room), num_x, num_y)
     assert got_m.dtype == got_c.dtype == torch.int32
-    np.testing.assert_array_equal(got_c.numpy(), counts)
-    np.testing.assert_array_equal(got_m.numpy()[:counts.sum()], members)
+    np.testing.assert_array_equal(got_c.numpy(), [len(m) for m in masks])
+    np.testing.assert_array_equal(got_m.numpy(), np.concatenate(masks))
 
 
 @pytest.mark.parametrize("raw,grid", [

@@ -18,10 +18,11 @@ Channels 0:3 are xyz with the block xy-centred, 3:6 rgb/255, 6:9 xyz
 normalized by the room extent. The reference's random block corners
 (``random_sample``) are not ported: the test path sweeps the regular grid.
 
-Given a device, ``S3DISTestRooms.load_room`` sweeps on it: the raw room
-goes to the device once, its bucketing, gather and normalisation run
-there (ops/room_sweep.py) and the blocks stay there; the host makes the
-same numpy draws from the block counts alone.
+The sweep runs on a torch device, the CPU by default: the raw room goes
+to the device once, its bucketing, gather and normalisation run there
+(ops/room_sweep.py) and the blocks stay there; the host makes the
+reference's numpy draws from the block counts alone. ``room_to_blocks``
+is that sweep on the CPU with numpy results.
 """
 
 from __future__ import annotations
@@ -156,56 +157,6 @@ BLOCK_SIZE = 1.0  # metres, the sweep's block edge and stride
 MIN_POINTS = 100  # blocks with fewer points are dropped
 
 
-def _block_members(x: np.ndarray, y: np.ndarray, num_x: int, num_y: int
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Every point's blocks on the grid, bucketed: (the point indices of
-    block 0, block 1, ... in turn, each block's in ascending index; where
-    each block starts among them; each block's count), blocks numbered
-    i * num_y + j.
-
-    Block (i, j) holds i <= x <= i + 1 and j <= y <= j + 1 (bounds
-    inclusive, as the reference's mask): a point's own block is (floor(x),
-    floor(y)), and a point on an interior edge (x == floor(x) >= 1, or y)
-    also belongs to the block below it on that axis, and on a corner to
-    the diagonal one too. Blocks off the grid are dropped, such as the own
-    block of a point at an integer far extent (x == limit == 5.0). Block
-    edges are whole metres (BLOCK_SIZE is 1), so these tests are exact."""
-    n, nblocks = len(x), num_x * num_y
-    fx, fy = np.floor(x), np.floor(y)
-    on_x, on_y = np.flatnonzero(x == fx), np.flatnonzero(y == fy)
-    # each point's own block; a point off the grid goes to one more
-    # bucket, nblocks, which sorts last and is never read
-    key = fx * num_y
-    key += fy
-    key[(fx < 0) | (fx >= num_x) | (fy < 0) | (fy >= num_y)] = nblocks
-    # the edge points' copies: into the block below in x, below in y, and
-    # for a corner the diagonal one
-    on_x = on_x[(fx[on_x] >= 1) & (fx[on_x] <= num_x)]
-    on_y = on_y[(fy[on_y] >= 1) & (fy[on_y] <= num_y)]
-    diag = np.intersect1d(on_x, on_y, assume_unique=True)
-    on_x = on_x[(fy[on_x] >= 0) & (fy[on_x] < num_y)]
-    on_y = on_y[(fx[on_y] >= 0) & (fx[on_y] < num_x)]
-    copies = np.concatenate([on_x, on_y, diag])
-    kdt = np.int16 if nblocks <= np.iinfo(np.int16).max else np.int64
-    keys = np.empty(n + len(copies), kdt)
-    keys[:n] = key
-    keys[n:] = np.concatenate([(fx[on_x] - 1) * num_y + fy[on_x],
-                               fx[on_y] * num_y + fy[on_y] - 1,
-                               (fx[diag] - 1) * num_y + fy[diag] - 1])
-    # a stable sort keeps each block's own points in index order (numpy
-    # sorts 16-bit keys by radix); copies follow them (positions n on), so
-    # they are mapped to their points and their blocks put back in order
-    members = np.argsort(keys, kind="stable")
-    counts = np.bincount(keys, minlength=nblocks + 1)[:nblocks]
-    members = members[:counts.sum()]
-    moved = members >= n
-    members[moved] = copies[members[moved] - n]
-    starts = np.cumsum(counts) - counts
-    for b in np.unique(keys[n:]):
-        members[starts[b]:starts[b] + counts[b]].sort()
-    return members, starts, counts
-
-
 def _grid(limit: np.ndarray) -> Tuple[int, int]:
     """(num_x, num_y): the blocks of the sweep's grid over a room of
     extent ``limit`` (either may be 0 or less: no block)."""
@@ -214,58 +165,31 @@ def _grid(limit: np.ndarray) -> Tuple[int, int]:
 
 
 def _draws(counts: np.ndarray, num_point: int, min_points: int,
-           rng: np.random.Generator, alloc) -> np.ndarray:
+           rng: np.random.Generator, picks_buf: _HostBuffer) -> np.ndarray:
     """The draws of every block with at least ``min_points`` members, in
     the reference's order (i outer, j inner), one call per kept block, so
     the caller's generator ends where the reference's does: [K, num_point]
-    positions among the bucketed members (a block's start plus its draws),
-    in ``alloc(shape)``'s array."""
+    int32 positions among the bucketed members (a block's start plus its
+    draws), filled into ``picks_buf`` for its upload."""
     counts = counts.astype(np.int64)
     starts = np.cumsum(counts) - counts
     kept = np.flatnonzero(counts >= min_points)
-    picks = alloc((len(kept), num_point))
+    picks = picks_buf.fill((len(kept), num_point), np.int32)
     for row, b in zip(picks, kept):
         row[:] = starts[b] + sample_to_num_points(int(counts[b]), num_point, rng)
     return picks
 
 
-def _sweep(data_label: np.ndarray, num_point: int, min_points: int,
-           rng: Optional[np.random.Generator]
-           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """:func:`room_to_blocks` and the room's extent ``limit`` [3] f64."""
-    rng = rng or np.random.default_rng(0)
-    x = data_label[:, 0].astype(np.float64)
-    y = data_label[:, 1].astype(np.float64)
-    limit = np.array([x.max(), y.max(), data_label[:, 2].max()], np.float64)
-    num_x, num_y = _grid(limit)
-    empty = (np.zeros((0, num_point, 9), np.float32),
-             np.zeros((0, num_point), np.int32), limit)
-    if num_x <= 0 or num_y <= 0:
-        return empty
-    members, _, counts = _block_members(x, y, num_x, num_y)
-    picks = _draws(counts, num_point, min_points, rng,
-                   lambda shape: np.empty(shape, np.int64))
-    if not len(picks):
-        return empty
-    picked = data_label[members[picks.reshape(-1)]]
-    pts = picked[:, 0:6].astype(np.float64).reshape(len(picks), num_point, 6)
-    pts[..., 3:6] /= 255.0
-    out = np.empty((len(picks), num_point, 9), np.float32)
-    out[..., 6:9] = pts[..., 0:3] / limit
-    pts[..., 0:2] -= pts[..., 0:2].min(axis=1, keepdims=True) + BLOCK_SIZE / 2
-    out[..., 0:6] = pts
-    labels = picked[:, -1].astype(np.int32).reshape(len(picks), num_point)
-    return out, labels, limit
-
-
-def _sweep_device(raw: torch.Tensor, num_point: int, min_points: int,
-                  rng: Optional[np.random.Generator], picks_buf: "_HostBuffer"
-                  ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-    """:func:`_sweep` of a raw room on a torch device, bitwise: (blocks [K,
+def _sweep(raw: torch.Tensor, num_point: int, min_points: int,
+           rng: Optional[np.random.Generator], picks_buf: _HostBuffer
+           ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """The block sweep of a raw room on its torch device: (blocks [K,
     num_point, 9] f32 and labels [K, num_point] i32 on that device, the
-    extent ``limit`` [3] f64). The extent and the block counts are fetched
-    (two synchronises); the draws are :func:`_sweep`'s, on the caller's
-    generator, and their member positions go back through ``picks_buf``."""
+    extent ``limit`` [3] f64). The bucketing and the gather run in
+    ops/room_sweep.py (the kernels on the card, their plain versions on
+    the CPU); the extent and the block counts are fetched (two
+    synchronises), the draws are made on the host with the caller's
+    generator and their member positions go back through ``picks_buf``."""
     rng = rng or np.random.default_rng(0)
     dev = raw.device
     limit = raw[:, 0:3].amax(0).double().cpu().numpy()
@@ -276,13 +200,19 @@ def _sweep_device(raw: torch.Tensor, num_point: int, min_points: int,
         return empty
     members, counts = room_sweep.block_members(raw, num_x, num_y)
     counts = counts.cpu().numpy()
-    picks = _draws(counts, num_point, min_points, rng,
-                   lambda shape: picks_buf.fill(shape, np.int32))
+    picks = _draws(counts, num_point, min_points, rng, picks_buf)
     if not len(picks):
         return empty
     blocks, labels = room_sweep.gather_blocks(
         raw, members[:int(counts.sum())], picks_buf.upload(), limit)
     return blocks, labels, limit
+
+
+def _row_dtype(dtype: np.dtype) -> np.dtype:
+    """The dtype a raw room is swept in: float32 and float64 rows as they
+    are (in native byte order), any other type as float64."""
+    kept = dtype.type in (np.float32, np.float64)
+    return np.dtype(dtype.type if kept else np.float64)
 
 
 def room_to_blocks(data_label: np.ndarray, num_point: int, *,
@@ -291,26 +221,33 @@ def room_to_blocks(data_label: np.ndarray, num_point: int, *,
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Room -> fixed-size 9-channel blocks (DataIO_S3DIS.py:301-414).
 
-    One pass over the room: each point's 1 m block on the grid is computed
-    once, the points are bucketed by block with one stable sort, blocks of
-    fewer than ``min_points`` are dropped, and every kept block's
-    resampled rows are gathered at once. A point on a block edge belongs
-    to both blocks, and on a corner to all four (inclusive bounds, as the
-    reference's mask per block); each block's points are in room order.
-    The result is bitwise the reference's sweep, the generator's draws
-    included.
+    :meth:`S3DISTestRooms.load_room`'s sweep on a CPU tensor of the room,
+    with the results as numpy arrays. Each point's 1 m block on the grid
+    is computed once, the points are bucketed by block, blocks of fewer
+    than ``min_points`` are dropped, and every kept block's resampled rows
+    are gathered at once. A point on a block edge belongs to both blocks,
+    and on a corner to all four (inclusive bounds, as the reference's mask
+    per block); each block's points are in room order. The result is
+    bitwise the reference's sweep, the generator's draws included. A room
+    whose grid has more than ``ops/room_sweep.py::MAX_BLOCKS`` blocks
+    (12,288 square metres of floor plan) is refused, as on the card.
 
     Args:
       data_label: [N, 7] (xyz in metres from the room's min corner, rgb
-        0-255, class label).
+        0-255, class label); float32 or float64 rows are swept as they
+        are, any other type as float64.
       min_points: blocks with fewer points are dropped.
       rng: the resampling draws, in block order (default: seed 0).
 
     Returns:
       (blocks [K, num_point, 9] f32, labels [K, num_point] i32).
     """
-    blocks, labels, _ = _sweep(data_label, num_point, min_points, rng)
-    return blocks, labels
+    data_label = np.asarray(data_label)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        data_label, _row_dtype(data_label.dtype)))
+    blocks, labels, _ = _sweep(raw, num_point, min_points, rng,
+                               _HostBuffer(raw.device))
+    return blocks.numpy(), labels.numpy()
 
 
 def synthetic_blocks(*, num_rooms_per_area: int = 2,
@@ -450,8 +387,7 @@ def read_room(path: str, buf: _HostBuffer) -> np.ndarray:
         raise ValueError(f"unknown room file type: {path}")
     if data.ndim != 2:
         raise ValueError(f"{path}: shape {data.shape}, expected [n, C]")
-    keep = data.dtype.type in (np.float32, np.float64)
-    out = buf.fill(data.shape, data.dtype if keep else np.float64)
+    out = buf.fill(data.shape, _row_dtype(data.dtype))
     out[...] = data
     return out
 
@@ -473,52 +409,33 @@ class S3DISTestRooms:
         return len(self.room_paths)
 
     def load_room(self, i: int, rng: Optional[np.random.Generator] = None,
-                  device=None):
-        """(blocks [K, N, 9], labels [K, N], room path, room_max [3] f32).
+                  device="cpu"):
+        """(blocks [K, N, 9] f32, labels [K, N] i32, room path, room_max [3]
+        f32), the blocks and labels as tensors on ``device``.
 
-        ``room_max`` is the room's xyz extent in metres, the scale of block
-        channels 6:9: channels 6:9 times it are the points' room
-        coordinates, which room-level label propagation needs; the sweep
-        computes it in its one pass over the room. Spans
-        (utils/profiling.py::span): ``room.read`` (the file) and
-        ``room.sweep`` (the sweep, the extent included).
-
-        Without ``device`` the blocks and labels are numpy arrays from
-        :func:`_sweep`. With a torch ``device`` they are tensors there, from
-        :func:`_sweep_device`, bitwise the same with the same draws:
-        ``room.read`` fills a host buffer that the reader reuses from room
-        to room, and ``room.upload``, inside ``room.sweep``, copies the room
-        to the device once. A device sweep refuses a room whose grid has
-        more than ``ops/room_sweep.py::MAX_BLOCKS`` blocks (12,288 square
-        metres of floor plan; the numpy sweep has no such limit).
+        The room is swept on ``device`` (:func:`_sweep`: ops/room_sweep.py's
+        kernels on the card, their plain versions on the CPU). ``room_max``
+        is the room's xyz extent in metres, the scale of block channels
+        6:9: channels 6:9 times it are the points' room coordinates, which
+        room-level label propagation needs; the sweep computes it. Spans
+        (utils/profiling.py::span): ``room.read`` (the file, into a host
+        buffer that the reader reuses from room to room) and ``room.sweep``
+        (the sweep, the extent included), which holds ``room.upload`` (the
+        room's one copy to the device). A room whose grid has more than
+        ``ops/room_sweep.py::MAX_BLOCKS`` blocks (12,288 square metres of
+        floor plan) is refused.
         """
-        path = self.room_paths[i]
-        if device is not None:
-            return self._load_room_on(torch.device(device), path, rng)
-        with span("room.read"):
-            if path.endswith(".txt"):
-                data_label = np.loadtxt(path)
-            elif path.endswith(".npy"):
-                data_label = np.load(path)
-            else:
-                raise ValueError(f"unknown room file type: {path}")
-        with span("room.sweep"):
-            blocks, labels, limit = _sweep(data_label, self.num_point,
-                                           MIN_POINTS, rng)
-            room_max = limit.astype(np.float32)
-        return blocks, labels, path, room_max
-
-    def _load_room_on(self, device: torch.device, path: str,
-                      rng: Optional[np.random.Generator]):
+        device = torch.device(device)
         if self._bufs is None or self._bufs[0].device != device:
             self._bufs = (_HostBuffer(device), _HostBuffer(device))
         room_buf, picks_buf = self._bufs
+        path = self.room_paths[i]
         with span("room.read"):
             read_room(path, room_buf)
         with span("room.sweep"):
             with span("room.upload"):
                 raw = room_buf.upload()
-            blocks, labels, limit = _sweep_device(raw, self.num_point,
-                                                  MIN_POINTS, rng, picks_buf)
+            blocks, labels, limit = _sweep(raw, self.num_point, MIN_POINTS,
+                                           rng, picks_buf)
             room_max = limit.astype(np.float32)
         return blocks, labels, path, room_max

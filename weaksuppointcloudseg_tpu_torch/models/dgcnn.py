@@ -143,29 +143,20 @@ class DGCNNSeg(nn.Module):
         route only): return ``(logits, (idx, sqd))``, see
         :meth:`forward_fused`.
         """
-        if x.device.type == "cuda":
-            if self._cuda_route() == "fused":
-                return self.forward_fused(x, cat_onehot, n_valid,
-                                          training=training,
-                                          bn_decay=bn_decay,
-                                          generator=generator,
-                                          want_smooth_graph=want_smooth_graph)
-        elif x.device.type != "cpu":
+        if x.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {x.device}")
+        if layers.fused_route(self.compute_dtype, self.cfg.use_fused_knn,
+                              x.device):
+            return self.forward_fused(x, cat_onehot, n_valid,
+                                      training=training, bn_decay=bn_decay,
+                                      generator=generator,
+                                      want_smooth_graph=want_smooth_graph)
         if n_valid is not None:
             raise ValueError("n_valid is a fused-path option")
         if want_smooth_graph:
             raise ValueError("want_smooth_graph is a fused-path option")
         return self.forward_plain(x, cat_onehot, training=training,
                                   bn_decay=bn_decay, generator=generator)
-
-    def _cuda_route(self) -> str:
-        """"fused" (bf16 with ``use_fused_knn``) or "plain" (everything
-        else) on CUDA, in training and at eval alike: the reference's one
-        fused_tpu gate (dgcnn.py:141-145)."""
-        if self.compute_dtype == torch.bfloat16 and self.cfg.use_fused_knn:
-            return "fused"
-        return "plain"
 
     def forward_plain(self, x: torch.Tensor, cat_onehot: Optional[torch.Tensor],
                       *, training: bool = False, bn_decay=None,

@@ -77,11 +77,10 @@ class DGCNNCls(nn.Module):
         buffers are updated in place with ``bn_decay``) and dropout with
         masks from ``generator`` (on x's device)."""
         kw = dict(training=training, bn_decay=bn_decay, generator=generator)
-        if x.device.type == "cuda":
-            if self.cfg.use_fused_knn and x.dtype == torch.bfloat16:
-                return self.forward_fused(x, **kw)
-        elif x.device.type != "cpu":
+        if x.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {x.device}")
+        if layers.fused_route(x.dtype, self.cfg.use_fused_knn, x.device):
+            return self.forward_fused(x, **kw)
         return self.forward_plain(x, **kw)
 
     def forward_plain(self, x: torch.Tensor, *, training: bool = False,

@@ -54,6 +54,16 @@ from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add, scatter_bn_b
 BN_EPS = 1e-3
 
 
+def fused_route(dtype: torch.dtype, use_fused_knn: bool, device) -> bool:
+    """True where a forward takes the fused blocks (and training the fused
+    smoothness loss): bf16 with ``use_fused_knn`` on a CUDA device, in
+    training and at eval alike (the reference's one fused gate,
+    dgcnn.py:141-145 and steps.py:101-103). Everywhere else the plain
+    composition runs, as the reference's off the TPU."""
+    return bool(torch.device(device).type == "cuda"
+                and dtype == torch.bfloat16 and use_fused_knn)
+
+
 class Conv(nn.Module):
     """One shared-MLP conv layer: ``w`` [in_c, out_c], ``b`` [out_c] and,
     with ``bn``, ``gamma``/``beta`` plus the population stats

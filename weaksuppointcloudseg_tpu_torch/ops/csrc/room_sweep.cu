@@ -4,14 +4,16 @@
 // block's drawn rows gathered and normalised.
 //
 // Replaces no Pallas kernel: the JAX package sweeps a room with numpy on
-// the host (weaksuppointcloudseg_tpu/data/s3dis.py::room_to_blocks), as
-// does the port's data/s3dis.py::_sweep. It was added because that host
-// sweep was the largest share of a room request while the card idled, and
-// because the blocks it makes go to the card anyway (the eval forward and
-// the room LP run there). The host keeps the draws (numpy, on the
+// the host (weaksuppointcloudseg_tpu/data/s3dis.py::room_to_blocks, a
+// mask per block). It was added because a host sweep was the largest
+// share of a room request while the card idled, and because the blocks it
+// makes go to the card anyway (the eval forward and the room LP run
+// there). The host keeps the draws (numpy, on the
 // caller's generator); it fetches only each block's count for them.
 //
-// Two entry points, bitwise what _sweep computes:
+// Two entry points, bitwise what the JAX package's sweep computes (the
+// plain versions in ops/room_sweep.py, the port's CPU path, are the tests'
+// oracle on the card):
 //
 // room_sweep_members_launch: each block's member rows, in ascending point
 //   index, a stable counting sort in four launches:
@@ -22,7 +24,7 @@
 //      >= 1, or y) the block below it on that axis, on a corner the
 //      diagonal one too (the reference's inclusive bounds). A block off
 //      the grid (x < 0, or x == limit at a whole metre) takes nothing: it
-//      is _block_members' spare bucket, never read. Counts go to
+//      is a spare bucket, never read. Counts go to
 //      hist[block][tile].
 //   2. rows: one CTA per block scans its row of hist (exclusive), giving
 //      each tile's first slot inside the block, and writes the block's
@@ -40,7 +42,7 @@
 // room_sweep_gather_launch: one CTA per kept block gathers its drawn rows
 //   (picks are positions in members, start + draw, made on the host),
 //   takes the block's min of x and y over them (exact in any order), and
-//   writes the 9 channels in _sweep's float64 arithmetic and order: x -
+//   writes the 9 channels in the reference's float64 arithmetic: x -
 //   (min x + 0.5), y - (min y + 0.5), z, rgb / 255, xyz / limit, each
 //   rounded once to float32; the label truncated to int32. The build uses
 //   no fast-math flag, so the double divisions are IEEE round-to-nearest.

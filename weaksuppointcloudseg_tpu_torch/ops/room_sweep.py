@@ -1,27 +1,31 @@
-"""The room sweep's bucketing, gather and normalisation on the card
-(``ops/csrc/room_sweep.cu``).
+"""The room sweep's bucketing, gather and normalisation
+(``ops/csrc/room_sweep.cu`` on the card), the port's one block sweep of a
+raw S3DIS room (data/s3dis.py::_sweep).
 
 Replaces no Pallas kernel: the JAX package sweeps a raw room with numpy on
-the host (data/s3dis.py::room_to_blocks), and so does the port's
-``data/s3dis.py::_sweep`` for callers without a device. The kernels were
-added because that host sweep was the largest share of a room request and
-its blocks go to the card anyway; the host keeps the numpy draws and
-fetches only the block counts for them (data/s3dis.py::_sweep_device).
-Their bound is bytes: 30.7 MB for the bucketing and 20.4 MB for the
-gather of the largest benchmark room (1.54 M float64 rows, 48 blocks of
-4096 points), 0.0092 and 0.0061 ms at 3.35 TB/s
-(scripts/torch_room_sweep_time.py times them).
+the host (data/s3dis.py::room_to_blocks, a mask per block). The kernels
+were added because that sweep was the largest share of a room request and
+its blocks go to the card anyway; the host keeps the reference's numpy
+draws and fetches only the block counts for them. Their bound is bytes:
+30.7 MB for the bucketing and 20.4 MB for the gather of the largest
+benchmark room (1.54 M float64 rows, 48 blocks of 4096 points), 0.0092
+and 0.0061 ms at 3.35 TB/s (chip_smoke.py's phase 2 times them).
 
-Both compute what ``_sweep`` computes, bit for bit:
+Both follow the JAX package's sweep rules:
 
 - :func:`block_members`: every grid block's member rows in ascending
-  point index, a point on an interior block edge in both blocks and on a
-  corner in all four (data/s3dis.py::_block_members' rules);
-- :func:`gather_blocks`: the drawn rows of each kept block, normalised in
-  ``_sweep``'s float64 arithmetic and rounded once to float32.
+  point index. Block (i, j) holds i <= x <= i + 1 and j <= y <= j + 1
+  (inclusive bounds), so a point on an interior block edge is in both
+  blocks and on a corner in all four, and a block off the grid holds
+  nothing;
+- :func:`gather_blocks`: the drawn rows of each kept block (the draws
+  made i outer, j inner, as the reference's loop), normalised in the
+  reference's float64 arithmetic and rounded once to float32.
 
 Each wrapper launches its CUDA kernels on CUDA tensors and takes its plain
-version (``*_ref``) on CPU tensors; any other device raises.
+version (``*_ref``) on CPU tensors; any other device raises. The plain
+versions are the CPU path and the card tests' oracle; the CPU tests hold
+them bitwise to the JAX package's ``room_to_blocks``.
 """
 
 from __future__ import annotations
@@ -138,8 +142,8 @@ def gather_blocks_ref(raw: torch.Tensor, members: torch.Tensor,
 
 def gather_blocks(raw: torch.Tensor, members: torch.Tensor, picks: torch.Tensor,
                   limit) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kept blocks of a room from their drawn rows, as
-    data/s3dis.py::_sweep makes them: channels x - (min x + 0.5), y - (min
+    """The kept blocks of a room from their drawn rows, as the JAX
+    package's room_to_blocks makes them: channels x - (min x + 0.5), y - (min
     y + 0.5), z, rgb / 255, xyz / limit, the min over the block's picks,
     in float64 and rounded once to float32.
 

@@ -24,6 +24,7 @@ from weaksuppointcloudseg_tpu_torch.losses.weaksup import (
     masked_softmax_ce,
     total_weaksup_loss,
 )
+from weaksuppointcloudseg_tpu_torch.models import layers
 from weaksuppointcloudseg_tpu_torch.models.dgcnn import DGCNNSeg
 from weaksuppointcloudseg_tpu_torch.ops.schedules import (
     bn_decay_schedule,
@@ -34,12 +35,10 @@ from weaksuppointcloudseg_tpu_torch.train.state import Adam
 
 def fused_route(cfg: ExperimentConfig, device) -> bool:
     """True where training runs the fused blocks and the fused smoothness
-    loss: a bf16 model with ``use_fused_knn`` on the card (the reference's
-    one fused gate, dgcnn.py:141-145 and steps.py:101-103). On the CPU the
-    plain composition runs, as the reference's off the TPU."""
+    loss: models/layers.py::fused_route for ``cfg``'s model on ``device``."""
     m = cfg.model
-    return bool(torch.device(device).type == "cuda"
-                and m.compute_dtype == "bfloat16" and m.use_fused_knn)
+    return layers.fused_route(getattr(torch, m.compute_dtype),
+                              m.use_fused_knn, device)
 
 
 def smooth_graph_reusable(cfg: ExperimentConfig, device) -> bool:
