@@ -4,8 +4,8 @@
 
     python scripts/torch_ptxas_usage.py [source.cu ...]
 
-With no arguments it reports ``knn.cu`` and ``knn_gather.cu`` (kernels
-B12 and B15). Needs ``nvcc``; nothing runs on a GPU. The object files go
+With no arguments it reports ``knn_edge.cu``, ``knn.cu`` and
+``knn_gather.cu`` (kernels B1, B12 and B15, on ``knn_tiles.cuh``). Needs ``nvcc``; nothing runs on a GPU. The object files go
 to a temporary directory under the git-ignored ``_build/``.
 """
 
@@ -37,7 +37,7 @@ def report(src: pathlib.Path, out_dir: pathlib.Path) -> None:
 
 
 def main() -> None:
-    names = sys.argv[1:] or ["knn.cu", "knn_gather.cu"]
+    names = sys.argv[1:] or ["knn_edge.cu", "knn.cu", "knn_gather.cu"]
     _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
         for name in names:

@@ -55,14 +55,22 @@ def randn(gen, shape, dtype=torch.bfloat16, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-@pytest.mark.parametrize("cg,fast,n_valid", [
-    (3, False, None), (3, True, 600), (64, False, 650), (64, True, None)])
-def test_knn_edge_kernel(gen, cg, fast, n_valid):
+@pytest.mark.parametrize("b,n,cg,fast,n_valid,c", [
+    (3, 701, 3, False, None, 64), (3, 701, 3, True, 600, 64),
+    (3, 701, 64, False, 650, 64), (3, 701, 64, True, None, 64),
+    (3, 701, 16, False, 650, 37),
+    (14, 4096, 3, False, 3001, 64), (14, 4096, 3, True, None, 64),
+    (14, 4096, 64, False, None, 64), (14, 4096, 64, True, 3001, 64),
+    (64, 2048, 3, False, None, 64), (64, 2048, 64, True, None, 64)])
+def test_knn_edge_kernel(gen, b, n, cg, fast, n_valid, c):
     """Indices by agreement rate (f32 sums in another order than cuBLAS:
     exact >= 99.9%, fast >= 98%); y1, extrema and moments against the
     plain formulas at the kernel's own indices (bitwise; moments 1e-5 of
-    the sum of magnitudes)."""
-    b, n, k, c = 3, 701, 20, 64
+    the sum of magnitudes). Ragged 3 x 701 (C=37: one channel a lane, not
+    a pair), and the benchmark cells' shapes: S3DIS blocks (14 x 4096,
+    Cg=3 and 64) and ShapeNet training (64 x 2048), with n_valid < N in
+    both modes."""
+    k = 20
     g, v, u = randn(gen, (b, n, cg)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
     before = edgeconv.knn_edge.launches
     got = edgeconv.knn_edge(g, v, u, k, fast=fast, with_minmax=True,
@@ -88,13 +96,13 @@ def test_knn_edge_kernel(gen, cg, fast, n_valid):
     assert bool(((got[2] - mom).abs() <= 1e-5 * mags).all())
 
 
-@pytest.mark.parametrize("n,cg", [(40, 3), (3000, 124)])
+@pytest.mark.parametrize("n,cg", [(40, 3), (3000, 128)])
 def test_knn_edge_moments_short_rows_and_cap(gen, n, cg):
-    """The moment sums sit over each warp's distance row once it is
-    selected: rows shorter than 2C (N=40, C=64) widen to hold them, and
-    the shape cap stays at Cg=124 for N=3000 (128 raises). Moments within
-    1e-5 of the magnitudes at the kernel's own indices, two launches bit
-    for bit equal."""
+    """N=40: fewer rows than one block of the tiles and a last group of
+    rows cut short; Cg=128 at N=3000, past the old distance-rows cap of
+    124, runs (the channels in chunks), and the limit is k: 65 raises
+    before any launch. Moments within 1e-5 of the magnitudes at the
+    kernel's own indices, two launches bit for bit equal."""
     b, k, c = 1, 20, 64
     g, v, u = randn(gen, (b, n, cg)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
     got = edgeconv.knn_edge(g, v, u, k, fast=True)
@@ -107,8 +115,79 @@ def test_knn_edge_moments_short_rows_and_cap(gen, n, cg):
     mags = torch.stack([y.abs().sum((0, 1, 2)), mom[1]])
     assert bool(((got[2] - mom).abs() <= 1e-5 * mags).all())
     if n == 3000:
-        with pytest.raises(RuntimeError):
-            edgeconv.knn_edge(randn(gen, (b, n, cg + 4)), v, u, k, fast=True)
+        before = edgeconv.knn_edge.launches
+        with pytest.raises(ValueError, match=r"k=65 must be in \[1, min\(64"):
+            edgeconv.knn_edge(g, v, u, 65, fast=True)
+        assert edgeconv.knn_edge.launches == before
+
+
+def moments_in_kernel_order(y, n_valid):
+    """B1's moments of y1 [B,N,k,C] in the kernel's order of f32 adds,
+    written out in plain torch (each add one IEEE f32 rounding): each row
+    sums its k values in slot order from 0; each group of 8 consecutive
+    rows adds its rows in order from 0 (rows past n_valid, and past N,
+    add 0) into partial b * ceil(N/8) + row / 8; det_sum.cuh's sum_cols
+    then adds the R partials of an element: 8 warps of 32 lanes where
+    R >= 2048, else one; lane l of warp w adds partials w*32 + l,
+    w*32 + l + 32W, ... in order from 0, the lanes combine by the xor
+    butterfly (offsets 16 to 1, lane 0's result) and the warps in order."""
+    b, n, k, c = y.shape
+    y = y.float()
+    rows = []
+    for sq in (False, True):
+        s = torch.zeros((b, n, c), dtype=torch.float32, device=y.device)
+        for j in range(k):
+            s = s + (y[:, :, j] * y[:, :, j] if sq else y[:, :, j])
+        s[:, n_valid:] = 0.0
+        rows.append(s)
+    groups = -(-n // 8)
+    part = []
+    for s in rows:
+        s = torch.cat([s, s.new_zeros((b, groups * 8 - n, c))], dim=1)
+        s = s.view(b, groups, 8, c)
+        p = torch.zeros((b, groups, c), dtype=torch.float32, device=y.device)
+        for r in range(8):
+            p = p + s[:, :, r]
+        part.append(p.reshape(b * groups, c).t())  # [C, R]
+    part = torch.cat(part)  # [2C, R]: part[element][partial]
+    width, nrows = part.shape
+    warps = 8 if nrows >= 2048 else 1
+    span = 32 * warps
+    steps = -(-nrows // span)
+    padded = torch.cat([part, part.new_zeros((width, steps * span - nrows))], 1)
+    lanes = torch.zeros((width, span), dtype=torch.float32, device=y.device)
+    for t in range(steps):
+        lanes = lanes + padded[:, t * span:(t + 1) * span]
+    lanes = lanes.view(width, warps, 32)
+    ids = torch.arange(32, device=y.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, :, ids ^ off]
+    total = lanes[:, 0, 0]
+    for w in range(1, warps):
+        total = total + lanes[:, w, 0]
+    return total.view(2, c)
+
+
+@pytest.mark.parametrize("b,n,cg,fast,n_valid,c", [
+    (3, 701, 64, False, 650, 64), (1, 45, 3, True, None, 37),
+    (14, 4096, 3, True, 3001, 64), (64, 2048, 64, False, None, 64)])
+def test_knn_edge_moment_order(gen, b, n, cg, fast, n_valid, c):
+    """B1's moments equal, bit for bit, the fixed order written out in
+    plain torch (moments_in_kernel_order) at the kernel's own indices:
+    per-row sums over the k slots in order, partials of 8 rows in order,
+    then det_sum.cuh's sum_cols order, with one warp per element (3 x 701,
+    1 x 45: the last group cut short, C=37 a channel a lane) and eight
+    (14 x 4096, 64 x 2048)."""
+    k = 20
+    g, v, u = randn(gen, (b, n, cg)), randn(gen, (b, n, c)), randn(gen, (b, n, c))
+    idx, y, mom = edgeconv.knn_edge(g, v, u, k, fast=fast, n_valid=n_valid)
+    nv = n if n_valid is None else n_valid
+    bi = torch.arange(b, device="cuda")[:, None, None]
+    want_y = (v.float()[bi, idx.long()] + u.float()[:, :, None, :]).to(
+        torch.bfloat16)
+    want_y[:, nv:] = 0
+    assert torch.equal(y, want_y)
+    assert same_bits(mom, moments_in_kernel_order(want_y, nv))
 
 
 @pytest.mark.parametrize("c1,c2,fold", [(64, 64, True), (64, 128, False),

@@ -34,7 +34,7 @@ D = ctypes.c_double
 # argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "knn_edge_launch": [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P,
-                        P, P, P, LL, P],
+                        P, P, P, P, LL, P],
     "knn_edge_pre_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, LL,
                             P],
     "conv_zmax_launch": [P, P, P, P, P, P, P, I, I, I, I, P, P],

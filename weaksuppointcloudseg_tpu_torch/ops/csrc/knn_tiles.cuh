@@ -1,5 +1,6 @@
-// The distance pass and k selection of kernels B12 (knn.cu) and B15
-// (knn_gather.cu): a register-tiled f32 Gram with a streaming top-k.
+// The distance pass and k selection of kernels B1 (knn_edge.cu), B12
+// (knn.cu) and B15 (knn_gather.cu): a register-tiled f32 Gram with a
+// streaming top-k.
 //
 // For every point i of every cloud b the kernel computes the squared
 // distances from x[b,i] to all x[b,j] in IEEE f32, in the Pallas kernels'
@@ -11,17 +12,21 @@
 // idx_bits replaced by the column", so near-ties may order differently
 // (held to an agreement rate) and the selected distance has its low
 // idx_bits cleared. In both modes NaN distances come after +inf, in column
-// order, as the plain version's stable sort puts them.
+// order, as the plain version's stable sort puts them. Columns at or past
+// n_valid are padding: exact mode reads their distance as +inf, fast mode
+// as the key FAST_PAD | column (after every number, before NaN); B12 and
+// B15 pass n_valid = N.
 //
-// The arithmetic of every distance is kernel B1's (knn_edge.cu), so the
-// two select the same graph on the same bf16 points, bit for bit: the
-// norms come from the same sqnorm_kernel chain; each dot product starts
-// at 0 and takes fmaf over channels 0..ceil4(C)-1 in order (the padding
-// channels are zero); d = (-2 acc + |x_i|^2) + |x_j|^2 with no
-// contraction; keys are select.cuh's order_key / fast_key. The result is
-// the k smallest entries of the total order (key, column): exact keys tie
-// only at equal distances, where the lower column comes first; fast keys
-// are unique; KEY_NAN sorts above every number.
+// Every distance is one fixed chain of f32 operations, so the three
+// kernels select the same graph on the same bf16 points (widened exactly
+// to f32), bit for bit: the norms sum the squares in channel order
+// (sqnorm_kernel); each dot product starts at 0 and takes fmaf over
+// channels 0..ceil4(C)-1 in order (the padding channels are zero);
+// d = (-2 acc + |x_i|^2) + |x_j|^2 with no contraction; keys are
+// select.cuh's order_key / fast_key. The result is the k smallest entries
+// of the total order (key, column): exact keys tie only at equal
+// distances, where the lower column comes first; fast keys are unique;
+// KEY_NAN sorts above every number.
 //
 // Design. A block of 4 warps owns TT_RM = 128 query rows (32 a warp, one
 // a lane) and walks the columns once, in tiles of TT_TN = 32 points. Each
@@ -53,7 +58,14 @@
 // calls
 //   e.finish<FAST>(b, row, lane, list, idx_mask)
 // with list the row's k entries, sorted (entry_col, entry_value decode
-// them).
+// them). A warp finishes its TT_WR rows in increasing order, and a row's
+// list stays in place until the kernel ends, tile_list_stride(k) entries
+// after the previous row's, so an epilogue may finish a run of its rows
+// together at the last of them.
+//
+// The kernel body is knn_tiles_body; knn_tiles_kernel (B12, B15) and
+// B1's knn_edge_kernel are __global__ functions that call it, so each
+// kernel keeps its own name in a trace.
 
 #pragma once
 
@@ -75,6 +87,11 @@ constexpr int TT_TN = 8 * TT_MI;      // columns per tile
 constexpr int TT_KC = 32;             // channels per chunk past 64
 constexpr int TT_K_MAX = 64;          // the largest k
 constexpr uint64_t TT_EMPTY = ~0ull;  // above every real entry
+constexpr int FAST_PAD = 0x7F000000;  // fast-mode key bits of a padding column
+
+// Entries between the starts of two neighbouring rows' lists (odd, so
+// neighbouring lanes' lists start in other banks).
+__host__ __device__ constexpr int tile_list_stride(int k) { return k | 1; }
 
 // |x_p|^2 in f32, channels summed in order (one thread per point).
 __global__ void sqnorm_kernel(const float* __restrict__ x, int points, int C,
@@ -279,24 +296,26 @@ inline TileGeometry tile_geometry(int C) {
   return g;
 }
 
-// Bytes of one block's shared memory: the row lists (a stride of k | 1
-// entries, odd, so neighbouring lanes' lists start in other banks),
-// the survivor masks, the tile's survivor distances and the thresholds,
-// then the resident query rows and two stages.
+// Bytes of one block's shared memory: the row lists, the survivor masks,
+// the tile's survivor distances and the thresholds, then the resident
+// query rows and two stages.
 inline size_t tile_smem(const TileGeometry& g, int k) {
-  const size_t sel = (size_t)TT_RM * (k | 1) * 8 + TT_RM * 8 +
+  const size_t sel = (size_t)TT_RM * tile_list_stride(k) * 8 + TT_RM * 8 +
                      (size_t)TT_RM * TT_TN * 4 + TT_RM * 4;
   const size_t rows = (size_t)TT_RM * g.ks * 4;
   const size_t cols = (size_t)TT_TN * g.ks * 4;
   return sel + (g.nchunks == 1 ? rows + 2 * cols : 2 * (rows + cols));
 }
 
+// One block's work: TT_RM query rows against all N columns of cloud
+// blockIdx.y, then the epilogue. x [B,N,C] f32 with |x_p|^2 in norms.
 template <bool FAST, class Epilogue>
-__global__ void __launch_bounds__(TT_THREADS) knn_tiles_kernel(
+__device__ __forceinline__ void knn_tiles_body(
     const float* __restrict__ x, const float* __restrict__ norms, int N, int C,
-    TileGeometry geo, int k, int idx_mask, bool vec, Epilogue epi) {
+    TileGeometry geo, int k, int n_valid, int idx_mask, bool vec,
+    Epilogue epi) {
   extern __shared__ uint64_t smem64[];
-  const int ls = k | 1;
+  const int ls = tile_list_stride(k);
   uint64_t* list = smem64;               // [TT_RM][ls] the rows' heaps
   uint64_t* mask = list + TT_RM * ls;    // [TT_RM] survivor bytes
   float* dtile = reinterpret_cast<float*>(mask + TT_RM);  // [TT_RM][TT_TN]
@@ -412,9 +431,11 @@ __global__ void __launch_bounds__(TT_THREADS) knn_tiles_kernel(
       unsigned bits = 0;
 #pragma unroll
       for (int i = 0; i < TT_MI; ++i) {
+        const int j = j0 + cg + 8 * i;
         float d = __fadd_rn(__fmul_rn(-2.f, acc[q][i]), rn[q]);
         d = __fadd_rn(d, cn[i]);
-        if (!(d >= t_row) && j0 + cg + 8 * i < N) {
+        if (j >= n_valid) d = FAST ? __int_as_float(FAST_PAD) : INFINITY;
+        if (!(d >= t_row) && j < N) {
           bits |= 1u << i;
           drow[cg + 8 * i] = d;
         }
@@ -436,35 +457,41 @@ __global__ void __launch_bounds__(TT_THREADS) knn_tiles_kernel(
   }
 
   // ---- the epilogue, row by row ----
-  Epilogue e = epi;
   for (int r = 0; r < TT_WR; ++r) {
     const int row = row0 + wrow + r;
     if (row >= N) break;
     sort_list(list + (wrow + r) * ls, k, lane);
-    e.template finish<FAST>(b, row, lane, list + (wrow + r) * ls, idx_mask);
+    epi.template finish<FAST>(b, row, lane, list + (wrow + r) * ls, idx_mask);
   }
 }
 
-// Norms into the [B,N] scratch, then the tiled kernel with epilogue `epi`.
-// 1 <= k <= min(k_max, N), k_max <= TT_K_MAX; 1 <= B <= 65535 (the grid's
-// y). Returns cudaErrorInvalidValue for a shape outside those limits.
 template <bool FAST, class Epilogue>
-cudaError_t knn_tiles_launch(const float* x, int B, int N, int C, int k,
-                             int k_max, int idx_bits, float* norms,
-                             Epilogue epi, cudaStream_t s) {
-  if (B < 1 || B > 65535 || N < 1 || C < 1 || k < 1 || k > k_max ||
-      k > TT_K_MAX || k > N) {
-    return cudaErrorInvalidValue;
-  }
-  const int points = B * N;
-  sqnorm_kernel<<<(points + 255) / 256, 256, 0, s>>>(x, points, C, norms);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(TT_THREADS) knn_tiles_kernel(
+    const float* __restrict__ x, const float* __restrict__ norms, int N, int C,
+    TileGeometry geo, int k, int n_valid, int idx_mask, bool vec,
+    Epilogue epi) {
+  knn_tiles_body<FAST>(x, norms, N, C, geo, k, n_valid, idx_mask, vec, epi);
+}
+
+// The shapes the tiled kernels take: 1 <= k <= min(k_max, N), k_max <=
+// TT_K_MAX; 1 <= B <= 65535 (the grid's y); points with a channel.
+inline bool tiles_shape_ok(int B, int N, int C, int k, int k_max) {
+  return B >= 1 && B <= 65535 && N >= 1 && C >= 1 && k >= 1 && k <= k_max &&
+         k <= TT_K_MAX && k <= N;
+}
+
+// Launch `kernel` (knn_tiles_kernel<FAST, Epilogue> or a __global__ of
+// the same parameters that calls knn_tiles_body) over x [B,N,C] f32 whose
+// norms are already in `norms`.
+template <class Kernel, class Epilogue>
+cudaError_t tiles_kernel_launch(Kernel kernel, const float* x, int B, int N,
+                                int C, int k, int n_valid, int idx_bits,
+                                const float* norms, const Epilogue& epi,
+                                cudaStream_t s) {
   const TileGeometry geo = tile_geometry(C);
   const size_t smem = tile_smem(geo, k);
-  auto kernel = knn_tiles_kernel<FAST, Epilogue>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -473,9 +500,25 @@ cudaError_t knn_tiles_launch(const float* x, int B, int N, int C, int k,
   // 16-byte copies need 16-byte aligned rows
   const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const dim3 grid((N + TT_RM - 1) / TT_RM, B);
-  kernel<<<grid, TT_THREADS, smem, s>>>(x, norms, N, C, geo, k,
+  kernel<<<grid, TT_THREADS, smem, s>>>(x, norms, N, C, geo, k, n_valid,
                                         (1 << idx_bits) - 1, vec, epi);
   return cudaGetLastError();
+}
+
+// Norms into the [B,N] scratch, then knn_tiles_kernel with epilogue `epi`
+// over all N columns. Returns cudaErrorInvalidValue for a shape outside
+// tiles_shape_ok.
+template <bool FAST, class Epilogue>
+cudaError_t knn_tiles_launch(const float* x, int B, int N, int C, int k,
+                             int k_max, int idx_bits, float* norms,
+                             Epilogue epi, cudaStream_t s) {
+  if (!tiles_shape_ok(B, N, C, k, k_max)) return cudaErrorInvalidValue;
+  const int points = B * N;
+  sqnorm_kernel<<<(points + 255) / 256, 256, 0, s>>>(x, points, C, norms);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return tiles_kernel_launch(knn_tiles_kernel<FAST, Epilogue>, x, B, N, C, k,
+                             N, idx_bits, norms, epi, s);
 }
 
 }  // namespace

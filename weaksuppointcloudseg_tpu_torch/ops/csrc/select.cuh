@@ -1,7 +1,7 @@
-// k-nearest selection over distance rows held in shared memory, shared by
-// kernels B1 (knn_edge.cu) and B9 (knn_rows.cuh): one warp per row, the
-// row stored as int32 keys whose signed integer order is the selection
-// order. Kernels B12 and B15 (knn_tiles.cuh) order by the same keys.
+// k-nearest selection over distance rows held in shared memory, for
+// kernel B9 (knn_rows.cuh): one warp per row, the row stored as int32 keys
+// whose signed integer order is the selection order. Kernels B1, B12 and
+// B15 (knn_tiles.cuh) order by the same keys.
 //
 // Exact mode stores order_key(d): the f32 bits made monotone under signed
 // compare (a negative value's magnitude bits flipped, -0 read as +0), every

@@ -34,7 +34,12 @@ from typing import Optional, Tuple
 import torch
 
 from weaksuppointcloudseg_tpu_torch.ops import _build
-from weaksuppointcloudseg_tpu_torch.ops.knn import distances, idx_bits, select_ref
+from weaksuppointcloudseg_tpu_torch.ops.knn import (
+    check_tiles_launch,
+    distances,
+    idx_bits,
+    select_ref,
+)
 from weaksuppointcloudseg_tpu_torch.ops.scatter import scatter_add
 
 
@@ -97,9 +102,10 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
        [, ymax bf16 [B,N,C], amax int32, ymin bf16, amin int32]
        [, sqd f32 [B,N,k]]).
 
-    On CUDA a block keeps 8 full distance rows and a 256-point tile of g
-    in shared memory, which bounds the shape (C=64, k=20: Cg <= 124 at
-    N=3000, Cg <= 152 at N=2048); a launch past that raises.
+    On CUDA the distance pass and the selection are the tiled kernels'
+    (ops/csrc/knn_tiles.cuh), whose shared memory does not grow with N or
+    Cg: k must be in [1, min(64, N)] (:func:`check_tiles_launch`), else
+    ``ValueError``.
     """
     if g.device.type == "cpu":
         return knn_edge_ref(g, v, u, k, fast=fast, with_minmax=with_minmax,
@@ -112,10 +118,7 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
     _build.check_operand(g, "g", torch.bfloat16, dev, (b, n, cg))
     _build.check_operand(v, "v", torch.bfloat16, dev, (b, n, c))
     _build.check_operand(u, "u", torch.bfloat16, dev, (b, n, c))
-    if not 1 <= k <= n:
-        raise ValueError(f"knn_edge: k={k} must be in [1, N={n}]")
-    if b > 65535:
-        raise ValueError(f"knn_edge: batch {b} exceeds the grid limit")
+    check_tiles_launch("knn_edge", b, n, cg, k)
     nv = n if n_valid is None else max(0, min(n_valid, n))
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     y = torch.empty((b, n, k, c), dtype=torch.bfloat16, device=dev)
@@ -127,15 +130,17 @@ def knn_edge(g: torch.Tensor, v: torch.Tensor, u: torch.Tensor, k: int, *,
           ) if with_minmax else (None,) * 4
     sqd = (torch.empty((b, n, k), dtype=torch.float32, device=dev)
            if with_values else None)
-    norms = torch.empty((b, n), dtype=torch.float32, device=dev)  # scratch
-    # the blocks' partial moments (8 rows a block), summed in block order
+    # scratch: the norms and g widened to f32 (rows of ceil4(Cg) floats)
+    norms = torch.empty((b, n), dtype=torch.float32, device=dev)
+    x32 = torch.empty((b, n, -(-cg // 4) * 4), dtype=torch.float32, device=dev)
+    # the partial moments of groups of 8 rows, summed in group order
     part = torch.empty(2 * c * b * -(-n // 8), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.knn_edge_launch(
             g.data_ptr(), v.data_ptr(), u.data_ptr(), b, n, cg, c, k,
             int(fast), nv, idx_bits(n) if fast else 0, norms.data_ptr(),
-            idx.data_ptr(), y.data_ptr(), mom.data_ptr(),
+            x32.data_ptr(), idx.data_ptr(), y.data_ptr(), mom.data_ptr(),
             *[_build.ptr(t) for t in mm],
             _build.ptr(sqd), part.data_ptr(), part.numel(),
             _build.stream_ptr(dev))

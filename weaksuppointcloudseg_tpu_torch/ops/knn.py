@@ -76,8 +76,8 @@ def select_ref(d: torch.Tensor, k: int, *, fast: bool,
 def check_tiles_launch(what: str, b: int, n: int, c: int, k: int,
                        k_max: int = K_MAX) -> None:
     """Raise for a launch the tiled kNN kernels (ops/csrc/knn_tiles.cuh,
-    kernels B12 and B15) do not take: k outside [1, min(k_max, N)] (a
-    row's sorted list holds 32 or 64 entries: B12 takes k <= 64, B15
+    kernels B1, B12 and B15) do not take: k outside [1, min(k_max, N)] (a
+    row's sorted list holds 32 or 64 entries: B1 and B12 take k <= 64, B15
     k <= 32), a batch outside the grid's y dimension [1, 65535], or points
     without channels. Shared memory does not depend on N or k beyond the
     list, so any N and C are taken."""
